@@ -1,0 +1,380 @@
+#!/usr/bin/env python3
+"""Drive gdmcf_torch's serving path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py                  # from the root of a checkout
+    python3 chip_smoke.py --profile FILE   # also writes a torch.profiler
+                                           # table of 5 dispatches to FILE
+
+Phases (any failure exits non-zero):
+  1. build the CUDA kernels from gdmcf_torch/csrc/ and print the card;
+  2. kernel phase: every kernel against its plain PyTorch version on the
+     card (forward and transpose, br 8 and 128, empty row and column tiles,
+     duplicate COO entries, D 64, 50 and 100), rtol 1e-4 / atol 1e-5, TF32 off
+     on the plain side;
+  3. path phase: the lightGCN backbone with the Amazon-Book recipe widths on
+     a seeded power-law graph of the published Amazon-Book size (108,822
+     users x 94,949 items): build_recommender (demo mode; the init-time
+     propagation launches each kernel twice) and several recommend() calls,
+     checked for range, uniqueness, history exclusion and determinism; the
+     propagated tables are held against the plain propagation on the card;
+  4. timings (kernels, plain versions, torch.sparse.mm, propagation,
+     request p50), the kernel JSON line, the card's name and power limit,
+     and as the last line {"ok": true, "device": {...}}.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+N_USER, N_ITEM, N_EDGES = 108_822, 94_949, 2_200_000
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
+F32_FLOP_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    """Mean device time of fn() over iters launches, CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def power_law_graph(seed: int):
+    """Seeded power-law user x item graph, vectorized: user degrees are
+    10 + a Pareto tail (mean ~20, as in a 10-core dataset); item ids are in
+    popularity order with weight (id + 1)^-0.8."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    deg = 10 + np.floor(rng.pareto(1.6, N_USER) * 6.0).astype(np.int64)
+    deg = np.minimum(deg, 2_000)
+    deg = np.maximum(np.round(deg * (N_EDGES / deg.sum())), 1).astype(np.int64)
+    users = np.repeat(np.arange(N_USER, dtype=np.int64), deg)
+    cdf = np.cumsum((np.arange(N_ITEM) + 1.0) ** -0.8)
+    items = np.searchsorted(cdf, rng.random(len(users)) * cdf[-1])
+    items = np.minimum(items, N_ITEM - 1)
+    keys = np.unique(users * N_ITEM + items)
+    return sp.csr_matrix((np.ones(len(keys), np.float32),
+                          (keys // N_ITEM, keys % N_ITEM)),
+                         shape=(N_USER, N_ITEM))
+
+
+def kernel_phase(S, torch):
+    """Each kernel against the plain version on the card."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(0)
+    n_rows, n_cols = 1000, 700           # x has fewer rows than the grid
+    m = sp.random(n_rows, n_cols, density=0.03, random_state=1,
+                  format="coo", dtype=np.float32)
+    keep = ~(((m.row >= 256) & (m.row < 384))      # empty row tiles
+             | ((m.col >= 256) & (m.col < 384)))   # an empty column tile
+    r, c, v = m.row[keep], m.col[keep], m.data[keep]
+    dup = rng.integers(0, len(r), 64)              # duplicate COO entries
+    m = sp.coo_matrix((np.concatenate([v, v[dup]]),
+                       (np.concatenate([r, r[dup]]),
+                        np.concatenate([c, c[dup]]))), shape=(n_rows, n_cols))
+    dense = m.toarray()
+    worst = {"spmm_csr_fwd": 0.0, "spmm_csc_t": 0.0}
+    for br in (8, 128):
+        a = S.to_block_sparse(m, br=br, bc=128).to("cuda")
+        for d in (64, 50, 100):
+            for transpose in (False, True):
+                name = "spmm_csc_t" if transpose else "spmm_csr_fwd"
+                n_x = n_rows if transpose else n_cols
+                x = torch.from_numpy(rng.standard_normal(
+                    (n_x, d)).astype(np.float32)).cuda()
+                y = S.spmm(a, x, transpose)
+                torch.cuda.synchronize()
+                y_plain = S.spmm_reference(a, x, transpose)
+                err = (y - y_plain).abs().max().item()
+                torch.testing.assert_close(y, y_plain, **TOL)
+                want = (dense.T if transpose else dense) @ x.cpu().numpy()
+                n_out = want.shape[0]
+                np.testing.assert_allclose(y[:n_out].cpu().numpy(), want,
+                                           rtol=1e-4, atol=1e-4)
+                assert not y[n_out:].any(), "pad rows must be zero"
+                empty = y[256:384]                  # empty row/column tile
+                assert not empty.any(), f"{name}: empty tile not zero"
+                worst[name] = max(worst[name], err)
+                log(f"kernel {name} br={br} d={d}: max|kernel-plain| "
+                    f"{err:.3e} (rtol {TOL['rtol']}, atol {TOL['atol']})")
+    return worst
+
+
+def bytes_and_flops(a, d, transpose):
+    """What one product needs: tiles + the x rows its tiles touch +
+    output, read or written once; 2 flops per stored nonzero per column
+    (a zero tile entry needs no work)."""
+    nb = a.n_blocks
+    if transpose:
+        x_tiles = a.block_rows[:nb].unique().numel()
+        x_rows = min(x_tiles * a.br, a.shape[0])
+        out_rows = a.shape[1]
+    else:
+        x_tiles = a.block_cols[:nb].unique().numel()
+        x_rows = min(x_tiles * a.bc, a.shape[1])
+        out_rows = a.shape[0]
+    meta = 4 * (2 * nb + (a.shape[0] // a.br) + (a.shape[1] // a.bc) + 2)
+    nbytes = nb * a.br * a.bc * 4 + x_rows * d * 4 + out_rows * d * 4 + meta
+    nnz = int((a.blocks[:nb] != 0).sum())
+    return nbytes, 2 * nnz * d
+
+
+def nnz_bytes(a, d, transpose):
+    """A bound free of the tile format: each stored nonzero's value and
+    (row, column) index, the x rows the nonzeros touch and the output,
+    each read or written once."""
+    k, i, j = a.blocks[: a.n_blocks].nonzero(as_tuple=True)
+    rows = a.block_rows_csr[k].long() * a.br + i
+    cols = a.block_cols[k].long() * a.bc + j
+    x_rows = (rows if transpose else cols).unique().numel()
+    out_rows = a.shape[1] if transpose else a.shape[0]
+    return k.numel() * 12 + (x_rows + out_rows) * d * 4
+
+
+def tpu_kernel_line(root: str, name: str) -> str:
+    """'file:line' of the Pallas kernel ``name`` in the repo (the JAX
+    package is read as text, never imported)."""
+    import glob
+    for path in sorted(glob.glob(os.path.join(root, "*", "ops", "spmm.py"))):
+        with open(path) as fh:
+            for no, line in enumerate(fh, 1):
+                if line.startswith(f"def {name}("):
+                    return f"{os.path.relpath(path, root)}:{no}"
+    raise FileNotFoundError(f"no Pallas kernel {name} in {root}")
+
+
+def library_operand(a, torch, transpose, n_x):
+    """The tile part of N as a torch sparse CSR (or its transpose) with
+    n_x columns, for torch.sparse.mm against x [n_x, D]."""
+    import warnings
+    k, i, j = a.blocks[: a.n_blocks].nonzero(as_tuple=True)
+    rows = a.block_rows_csr[k].long() * a.br + i
+    cols = a.block_cols[k].long() * a.bc + j
+    vals = a.blocks[k, i, j]
+    if transpose:
+        rows, cols = cols, rows
+    shape = (a.shape[1] if transpose else a.shape[0], n_x)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # "sparse CSR support is in beta"
+        coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, shape,
+                                      check_invariants=True)
+        return coo.coalesce().to_sparse_csr()
+
+
+def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", metavar="FILE", default=None,
+                        help="write a torch.profiler table of 5 dispatches")
+    args = parser.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gdmcf_torch.config import load_config
+    from gdmcf_torch.models import lightgcn as lg
+    from gdmcf_torch.models.backbones import DNNlightGCN
+    from gdmcf_torch.ops import spmm as S
+    from gdmcf_torch.serve import build_recommender
+    from gdmcf_torch.train.trainer import matmul_precision
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    card = card_line()
+
+    # 1. build
+    t0 = time.perf_counter()
+    S.build_kernels()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    for line in S.BUILD_LOG.splitlines():
+        if "registers" in line or "spill" in line:
+            log("ptxas:", line.strip())
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+        f"{torch.cuda.get_device_name(0)}")
+
+    # 2. kernel phase (TF32 off on the plain side)
+    with matmul_precision(tf32=False):
+        errors = kernel_phase(S, torch)
+
+    # 3. path phase
+    t0 = time.perf_counter()
+    csr = power_law_graph(seed=0)
+    log(f"graph: {N_USER} x {N_ITEM}, {csr.nnz} edges "
+        f"({time.perf_counter() - t0:.1f} s)")
+    cfg = load_config(os.path.join(root, "configs", "amazonOneEmbGcn.yaml"),
+                      {"backbone": "lightGCN", "device": "cuda"})
+    log(f"config: dims {cfg.dims} emb_size {cfg.emb_size} steps {cfg.steps}"
+        f" noise_scale {cfg.noise_scale} sampling_steps {cfg.sampling_steps}"
+        f" OneHotMatrix {cfg.OneHotMatrix} wire {cfg.wire_format}"
+        f" compute_dtype {cfg.compute_dtype} -> TF32 "
+        f"{'on' if cfg.compute_dtype == 'bfloat16' else 'off'}")
+    assert N_USER * N_ITEM * 4 > lg._DENSE_LIMIT_BYTES
+
+    S.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = build_recommender(cfg, None, csr, N_USER, N_ITEM, warmup=True,
+                            serve_batch=256, k_max=100)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    init_launches = dict(S.LAUNCHES)
+    log(f"build_recommender: {build_s:.1f} s, launches {init_launches}")
+
+    rng = np.random.default_rng(1)
+    history = csr.tolil().rows
+    users_a = rng.choice(N_USER, 5, replace=False)
+    users_b = rng.choice(N_USER, 300, replace=False)   # two dispatches
+    items_a, _ = rec.recommend(users_a, k=20)
+    items_b, _ = rec.recommend(users_b, k=100)
+    items_c, _ = rec.recommend(users_a[:3], k=10, exclude_history=False)
+    items_a2, _ = rec.recommend(users_a, k=20)
+    launches = dict(S.LAUNCHES)
+    assert launches == init_launches, "requests must launch no SpMM kernel"
+    for name in ("spmm_csr_fwd", "spmm_csc_t"):
+        assert launches[name] > 0, f"{name} was not launched on the path"
+    for items, users, excl in ((items_a, users_a, True),
+                               (items_b, users_b, True),
+                               (items_c, users_a[:3], False)):
+        assert items.shape[0] == len(users)
+        assert ((items >= 0) & (items < N_ITEM)).all(), "ids out of range"
+        for row, u in zip(items, users):
+            assert len(set(row.tolist())) == len(row), "duplicate ids"
+            if excl:
+                assert not set(row.tolist()) & set(history[u]), \
+                    "a history item was recommended"
+    assert np.array_equal(items_a, items_a2), "same users, different ids"
+    log(f"requests ok: {items_a.shape} {items_b.shape} {items_c.shape}; "
+        f"sample {items_a[0][:10].tolist()}")
+
+    # the propagated tables against the plain propagation on the card
+    model = rec.trainer.model
+    g = torch.Generator("cuda").manual_seed(cfg.random_seed)
+    raw_u, raw_i = DNNlightGCN.draw_lgn_table(N_USER, N_ITEM, 64, g, "cuda")
+    h = lg.normalized_bipartite_hybrid(csr).to("cuda")
+    with matmul_precision(tf32=False):
+        pu, pi = lg._layers(
+            raw_u, raw_i, 2,
+            lambda x: S.hybrid_spmm_reference(h, x, transpose=False),
+            lambda x: S.hybrid_spmm_reference(h, x, transpose=True))
+    prop_err = max((model.frozen_lgn_user - pu).abs().max().item(),
+                   (model.frozen_lgn_item - pi).abs().max().item())
+    torch.testing.assert_close(model.frozen_lgn_user, pu, rtol=1e-4,
+                               atol=1e-6)
+    torch.testing.assert_close(model.frozen_lgn_item, pi, rtol=1e-4,
+                               atol=1e-6)
+    assert torch.isfinite(model.frozen_lgn_user).all()
+    a = h.tiles
+    tile_nnz = int((a.blocks[: a.n_blocks] != 0).sum())
+    log(f"propagation vs plain: max abs err {prop_err:.3e}; tiles "
+        f"{a.n_blocks} ({a.br}x{a.bc}), tile nnz {tile_nnz}, COO remainder "
+        f"{h.rem_vals.numel()}, max row width {a.max_row_width}, max column "
+        f"width {a.max_col_width}")
+
+    # 4. timings
+    prop_ms = cuda_ms(lambda: lg.propagate_hybrid(raw_u, raw_i, h, 2),
+                      iters=5, warmup=1)
+    log(f"propagation (2 layers x 2 directions, kernels + COO): "
+        f"{prop_ms:.3f} ms [{card}]")
+    kernels = []
+    for name, transpose, x in (("spmm_csr_fwd", False, raw_i),
+                               ("spmm_csc_t", True, raw_u)):
+        ms = cuda_ms(lambda: S.spmm(a, x, transpose))
+        with matmul_precision(tf32=False):
+            plain_ms = cuda_ms(lambda: S.spmm_reference(a, x, transpose),
+                               iters=5, warmup=1)
+        lib = library_operand(a, torch, transpose, x.shape[0])
+        lib_ms = cuda_ms(lambda: torch.sparse.mm(lib, x))
+        rr, rc = (h.rem_cols, h.rem_rows) if transpose else (h.rem_rows,
+                                                            h.rem_cols)
+        n_out = a.shape[1] if transpose else a.shape[0]
+        coo_ms = cuda_ms(lambda: x.new_zeros((n_out, x.shape[1])).index_add_(
+            0, rr, h.rem_vals[:, None] * x[rc]))
+        nbytes, flops = bytes_and_flops(a, x.shape[1], transpose)
+        nnz_bound = nnz_bytes(a, x.shape[1], transpose) / HBM_BYTES_PER_S * 1e3
+        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops = flops / F32_FLOP_PER_S * 1e3
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "gdmcf_torch/csrc/spmm.cu",
+            # the TPU takes K2 for both directions at this size (x is over
+            # its 6 MiB VMEM budget); K3/K4 are the same products
+            "replaces": tpu_kernel_line(root, "_spmm_kernel"),
+            "launches": launches[name],
+            "max_abs_err": errors[name],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            "library_ms": lib_ms,
+        })
+        # a transpose call whose column tiles span several CSC segments
+        # also launches spmm_csc_t_reduce; its time is inside ``ms``
+        device_launches = 1 + int(transpose
+                                  and a.n_segments > a.shape[1] // a.bc)
+        log(f"{name}: {ms:.4f} ms/call ({device_launches} device launches), "
+            f"plain {plain_ms:.4f} ms, torch.sparse.mm {lib_ms:.4f} ms, COO "
+            f"remainder {coo_ms:.4f} ms, tile-format bound "
+            f"{kernels[-1]['bound_ms']:.4f} ms ({nbytes} B, {flops} flop), "
+            f"nonzero-only bound {nnz_bound:.4f} ms [{card}]")
+
+    users = users_b[:256]
+    excl = np.ones(256, dtype=bool)
+    times = []
+    for _ in range(25):
+        t0 = time.perf_counter()
+        rec.recommend_batch(users, excl)
+        times.append((time.perf_counter() - t0) * 1e3)
+    p50 = float(np.percentile(times, 50))
+    log(f"request (256 users, k_max 100): p50 {p50:.3f} ms, p90 "
+        f"{float(np.percentile(times, 90)):.3f} ms over {len(times)} "
+        f"dispatches [{card}]")
+
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                rec.recommend_batch(users, excl)
+            torch.cuda.synchronize()
+        path = os.path.abspath(args.profile)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as fh:
+            fh.write(f"{card}\n5 dispatches of 256 users\n")
+            fh.write(prof.key_averages().table(sort_by="cuda_time_total",
+                                               row_limit=25))
+        log(f"profile of 5 dispatches written to {path}")
+    log(json.dumps({"kernels": kernels}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

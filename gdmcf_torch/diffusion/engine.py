@@ -1,0 +1,213 @@
+"""Graph-diffusion engine, discrete class: corruption and the reverse sampler.
+
+Port of the JAX package's ``diffusion/engine.py`` for what serving needs. The
+2-state discrete channel is a per-cell Bernoulli on the closed-form
+probability of state 1; the reverse sampler is a Python loop over the T
+steps with the degree-guided synthetic-graph growth.
+
+Random draws: every stochastic function takes either an explicit
+``torch.Generator`` or pre-drawn uniforms/normals, so tests can inject the
+JAX package's own draws (``bernoulli(p)`` is ``uniform < p`` in both).
+
+Fidelity quirks kept (``fidelity=True``): alpha_bar of the discrete channel
+is ``ts / batch_size`` (clipped to [0, 1]); discrete noise only deletes.
+The ``legacy`` and ``ablation`` variants are not ported yet.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass
+from typing import Callable, NamedTuple, Optional, Sequence
+
+import torch
+
+from gdmcf_torch.diffusion.schedules import (DiffusionCoeffs, compute_coeffs,
+                                             extract, get_betas)
+
+
+class MeanType(enum.Enum):
+    START_X = enum.auto()
+    EPSILON = enum.auto()
+
+
+class PSampleDraws(NamedTuple):
+    """Pre-drawn randomness for ``p_sample``, in the sampler's order.
+
+    ``init_u`` ([B, n] uniform) and ``init_c`` ([B, n] normal) start the
+    chain when ``sampling_steps > 0``; then, for each reverse step from
+    t = T-1 down to 0: ``sprinkle[s]`` ([B, n] uniform), ``gate[s]`` ([B]
+    uniform) and, with ``sampling_noise``, ``noise[s]`` ([B, n] normal).
+    """
+
+    init_u: Optional[torch.Tensor] = None
+    init_c: Optional[torch.Tensor] = None
+    sprinkle: Sequence[torch.Tensor] = ()
+    gate: Sequence[torch.Tensor] = ()
+    noise: Sequence[torch.Tensor] = ()
+
+
+# model(x, t, x_U, index=..., graph=...) -> (scores, closs or None)
+ModelApply = Callable[..., tuple]
+
+
+def _uniform(shape, like: torch.Tensor, generator, given):
+    if given is not None:
+        return given.to(like.device, torch.float32)
+    return torch.rand(shape, generator=generator, device=like.device)
+
+
+def _normal(shape, like: torch.Tensor, generator, given):
+    if given is not None:
+        return given.to(like.device, torch.float32)
+    return torch.randn(shape, generator=generator, device=like.device)
+
+
+@dataclass(frozen=True)
+class Diffusion:
+    mean_type: MeanType
+    steps: int
+    noise_scale: float
+    discrete_eps: float          # epsilon of u_x (reference ``--discrete``)
+    coeffs: Optional[DiffusionCoeffs] = None
+    cat_one_hot: bool = True     # OneHotMatrix == 2
+    user_guided: bool = True
+    fidelity: bool = True
+
+    @staticmethod
+    def create(cfg, variant: str = "discrete", device=None) -> "Diffusion":
+        if variant != "discrete":
+            raise NotImplementedError(
+                f"diffusion variant {variant!r} is not ported yet (ROADMAP.md"
+                " §A item 6, legacy and ablation variants)")
+        mean_type = (MeanType.START_X if cfg.mean_type == "x0"
+                     else MeanType.EPSILON)
+        coeffs = None
+        if cfg.noise_scale != 0.0:
+            betas = get_betas(cfg.noise_schedule, cfg.steps, cfg.noise_scale,
+                              cfg.noise_min, cfg.noise_max, cfg.beta_fixed)
+            coeffs = compute_coeffs(betas, device=device)
+        return Diffusion(
+            mean_type=mean_type, steps=cfg.steps,
+            noise_scale=cfg.noise_scale, discrete_eps=cfg.discrete,
+            coeffs=coeffs, cat_one_hot=(cfg.OneHotMatrix == 2),
+            user_guided=bool(cfg.user_guided), fidelity=cfg.fidelity)
+
+    # -- continuous channel ------------------------------------------------
+    def q_sample(self, x_start, t, noise):
+        c = self.coeffs
+        return (extract(c.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
+                + extract(c.sqrt_one_minus_alphas_cumprod, t, x_start.ndim)
+                * noise)
+
+    def q_posterior_mean(self, x_start, x_t, t):
+        c = self.coeffs
+        return (extract(c.posterior_mean_coef1, t, x_t.ndim) * x_start
+                + extract(c.posterior_mean_coef2, t, x_t.ndim) * x_t)
+
+    def predict_xstart_from_eps(self, x_t, t, eps):
+        c = self.coeffs
+        return (extract(c.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t
+                - extract(c.sqrt_recipm1_alphas_cumprod, t, x_t.ndim) * eps)
+
+    # -- discrete channel --------------------------------------------------
+    def _alpha_bar_discrete(self, ts: torch.Tensor,
+                            batch_size: int) -> torch.Tensor:
+        if self.fidelity:
+            # reference quirk: alpha_bar := ts / batch_size, clipped so a
+            # partial batch with B < steps stays a probability
+            return (ts.float() / batch_size).clamp(0.0, 1.0)
+        return self.coeffs.alphas_cumprod[ts].float()
+
+    def discrete_p_one(self, alpha_bar: torch.Tensor,
+                       x: torch.Tensor) -> torch.Tensor:
+        """P(state 1 | x) under Q_bar = a*I + (1-a)*u_x."""
+        a = alpha_bar.reshape(alpha_bar.shape
+                              + (1,) * (x.ndim - alpha_bar.ndim))
+        p1 = (1.0 - a) * (1.0 - self.discrete_eps)
+        return torch.where(x > 0.5, a + p1, p1)
+
+    def apply_noise(self, ts, x_binary, generator=None, u=None):
+        """Binary state-1 sample of the 2-state channel, [B, n]."""
+        a = self._alpha_bar_discrete(ts, x_binary.shape[0])
+        p1 = self.discrete_p_one(a, x_binary)
+        u = _uniform(p1.shape, x_binary, generator, u)
+        return (u < p1).to(x_binary.dtype)
+
+    def corrupt_discrete(self, ts, x_binary, generator=None, u=None):
+        """One-hot [B, n, 2] of ``apply_noise(x0) AND onehot(x0)``:
+        delete-only noise with a (0, 0) state for disagreeing cells."""
+        s = self.apply_noise(ts, x_binary, generator, u)
+        c1 = x_binary * s
+        c0 = (1.0 - x_binary) * (1.0 - s)
+        return torch.stack([c0, c1], dim=-1)
+
+    # -- reverse sampler ---------------------------------------------------
+    def p_sample(self, model: ModelApply, x_start: torch.Tensor,
+                 index: torch.Tensor, sampling_steps: int,
+                 sampling_noise: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 draws: Optional[PSampleDraws] = None) -> torch.Tensor:
+        """Full reverse loop with synthetic-graph growth; returns scores
+        [B, n]."""
+        assert sampling_steps <= self.steps, "Too much steps in inference."
+        if sampling_steps > 0 and self.coeffs is None:
+            raise ValueError("noise_scale=0 supports only sampling_steps=0")
+        if self.noise_scale == 0.0:
+            raise NotImplementedError(
+                "the noise_scale=0 reverse path is not ported yet")
+        draws = draws or PSampleDraws()
+        B, n = x_start.shape
+        dev = x_start.device
+
+        x_tU = None
+        if self.cat_one_hot:
+            if sampling_steps == 0:
+                x_tU = torch.stack([1.0 - x_start, x_start], dim=-1)
+            else:
+                t0 = torch.full((B,), sampling_steps - 1, dtype=torch.long,
+                                device=dev)
+                x_tU = self.corrupt_discrete(t0, x_start, generator,
+                                             draws.init_u)
+        if sampling_steps == 0:
+            x_t = x_start
+        else:
+            t0 = torch.full((B,), sampling_steps - 1, dtype=torch.long,
+                            device=dev)
+            x_t = self.q_sample(x_start, t0, _normal(
+                x_start.shape, x_start, generator, draws.init_c))
+
+        # ALWAYS-ON REPAIR: an all-zero batch would divide by zero in the
+        # reference; the floor disables the degree gate for it instead
+        deg = x_start.sum(dim=1)
+        deg_p = deg / deg.max().clamp_min(1e-12)
+        g = torch.zeros_like(x_start)
+        for s, i in enumerate(range(self.steps - 1, -1, -1)):
+            t = torch.full((B,), i, dtype=torch.long, device=dev)
+            p1 = self.discrete_p_one(self._alpha_bar_discrete(t, B), g)
+            u = _uniform((B, n), x_start, generator,
+                         draws.sprinkle[s] if draws.sprinkle else None)
+            grown = u < p1
+            if self.user_guided:
+                ug = _uniform((B,), x_start, generator,
+                              draws.gate[s] if draws.gate else None)
+                grown = grown & (ug < deg_p)[:, None]
+            g = torch.logical_or(g > 0.5, grown).to(x_start.dtype)
+            graph = torch.stack([1.0 - g, g], dim=-1)
+            model_output, _ = model(x_t, t, x_tU, index=index, graph=graph)
+            if self.mean_type == MeanType.START_X:
+                pred_xstart = model_output
+            else:
+                pred_xstart = self.predict_xstart_from_eps(x_t, t,
+                                                           model_output)
+            mean = self.q_posterior_mean(pred_xstart, x_t, t)
+            if sampling_noise:
+                nz = (t != 0).to(x_t.dtype).reshape(-1, *([1] * (x_t.ndim - 1)))
+                noise = _normal(x_t.shape, x_t, generator,
+                                draws.noise[s] if draws.noise else None)
+                log_var = extract(self.coeffs.posterior_log_variance_clipped,
+                                  t, x_t.ndim)
+                x_t = mean + nz * torch.exp(0.5 * log_var) * noise
+            else:
+                x_t = mean
+        return x_t

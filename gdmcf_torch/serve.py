@@ -1,0 +1,156 @@
+"""Serving: a recommender that answers user queries in fixed-shape batches.
+
+Port of the JAX package's ``serve.py``: requests of any size are padded into
+``serve_batch`` rows per dispatch; each dispatch ranks ``k_max`` items and
+any ``k <= k_max`` is a prefix of that ranking.
+
+    python -m gdmcf_torch.serve --backbone lightGCN --device cuda \\
+        -c configs/amazonOneEmbGcn.yaml --data_path ./Datasets/amazon-book_clean/
+
+Without a checkpoint the recommender serves a fresh init (demo mode);
+loading checkpoints is not ported yet.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gdmcf_torch.data.native import NativeCSR
+from gdmcf_torch.train.trainer import Trainer
+
+
+class Recommender:
+    def __init__(self, trainer: Trainer, history: NativeCSR,
+                 serve_batch: int = 256, k_max: int = 100):
+        self.trainer = trainer
+        self.history = history
+        self.serve_batch = serve_batch
+        self.k_max = min(k_max, history.n_item)
+        self._generator = torch.Generator(trainer.device).manual_seed(
+            trainer.cfg.random_seed + 777)
+        self._lock = threading.Lock()
+
+    @classmethod
+    def from_state(cls, trainer: Trainer,
+                   state: Optional[Mapping[str, torch.Tensor]], train_csr,
+                   serve_batch: int = 256, k_max: int = 100
+                   ) -> "Recommender":
+        """``state``: a state_dict for ``trainer.model`` (None keeps the
+        trainer's own parameters)."""
+        if state is not None:
+            trainer.model.load_state_dict(
+                {k: v if isinstance(v, torch.Tensor)
+                 else torch.from_numpy(np.array(v))
+                 for k, v in state.items()})
+        # membership semantics: the history is which items to exclude
+        return cls(trainer, NativeCSR.from_scipy(train_csr, strict=False),
+                   serve_batch, k_max)
+
+    def warmup(self) -> None:
+        self.recommend(list(range(min(2, self.history.n_user))),
+                       k=min(10, self.k_max))
+
+    def recommend(self, user_ids: Sequence[int], k: int = 20,
+                  exclude_history: bool = True
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-k item ids for the users; returns ([n, k] items, [n] ids)."""
+        if not 1 <= k <= self.k_max:
+            raise ValueError(f"k={k} outside [1, k_max={self.k_max}]")
+        user_ids = np.asarray(user_ids, dtype=np.int64)
+        n_user = len(self.history)
+        if user_ids.size == 0:
+            raise ValueError("recommend() needs at least one user id")
+        if user_ids.min() < 0 or user_ids.max() >= n_user:
+            raise ValueError(f"user ids must be in [0, {n_user}); got "
+                             f"min={user_ids.min()} max={user_ids.max()}")
+        results = []
+        for start in range(0, len(user_ids), self.serve_batch):
+            chunk = user_ids[start:start + self.serve_batch]
+            ranked = self.recommend_batch(
+                chunk, np.full(len(chunk), exclude_history, dtype=bool))
+            results.append(ranked[:, :k])
+        return np.concatenate(results, axis=0), user_ids
+
+    def recommend_batch(self, user_ids: Sequence[int],
+                        exclude_rows: np.ndarray) -> np.ndarray:
+        """ONE padded dispatch for up to ``serve_batch`` users with a
+        per-row exclude decision; returns [n, k_max] score-sorted ids."""
+        cfg = self.trainer.cfg
+        user_ids = np.asarray(user_ids, dtype=np.int64)
+        if not 0 < user_ids.size <= self.serve_batch:
+            raise ValueError(f"recommend_batch takes 1..{self.serve_batch} "
+                             f"users; got {user_ids.size}")
+        pad = self.serve_batch - user_ids.size
+        padded = np.concatenate([user_ids, np.zeros(pad, np.int64)])
+        rows = (self.history.gather_packed(padded)
+                if cfg.wire_format == "packed"
+                else self.history.gather(padded))
+        excl = np.concatenate([np.asarray(exclude_rows, dtype=bool),
+                               np.zeros(pad, dtype=bool)])
+        mask = np.where(excl[:, None], rows, np.zeros_like(rows))
+        dev = self.trainer.device
+        with self._lock:
+            idx = self.trainer.eval_step(
+                torch.from_numpy(rows).to(dev),
+                torch.from_numpy(padded).to(dev),
+                torch.from_numpy(mask).to(dev),
+                sampling_steps=cfg.sampling_steps, top_k=self.k_max,
+                generator=self._generator)
+        return idx.cpu().numpy()[: user_ids.size]
+
+
+def build_recommender(cfg, ckpt_dir, train_csr, n_user: int, n_item: int,
+                      warmup: bool = True, device=None,
+                      **kw) -> Recommender:
+    """Build the trainer and recommender (demo mode: fresh init) and warm
+    up. Checkpoint loading is not ported yet."""
+    if ckpt_dir:
+        raise NotImplementedError(
+            "serving from a checkpoint is not ported yet (ROADMAP.md §A "
+            "item 3); omit --ckpt_dir_serve for demo mode")
+    trainer = Trainer(cfg, n_user, n_item, train_csr=train_csr,
+                      device=device)
+    rec = Recommender.from_state(trainer, None, train_csr, **kw)
+    print("no checkpoint; serving from fresh init (demo mode)")
+    if warmup:
+        rec.warmup()
+    return rec
+
+
+def main(argv=None):
+    import argparse
+    import sys
+    import time
+
+    from gdmcf_torch.config import parse_args
+    from gdmcf_torch.data.loader import data_load_dir
+
+    args = argv if argv is not None else sys.argv[1:]
+    serve_flags = argparse.ArgumentParser(add_help=False)
+    serve_flags.add_argument("--ckpt_dir_serve", default=None)
+    serve_flags.add_argument("--k", type=int, default=20)
+    serve_flags.add_argument("--users", type=str, default="0,1,2,3")
+    serve_flags.add_argument("--serve_batch", type=int, default=256)
+    serve_flags.add_argument("--k_max", type=int, default=100)
+    ns, rest = serve_flags.parse_known_args(args)
+    cfg = parse_args(rest)
+
+    train, _valid, _test, n_user, n_item = data_load_dir(cfg.data_path)
+    rec = build_recommender(cfg, ns.ckpt_dir_serve or cfg.ckpt_dir, train,
+                            n_user, n_item, serve_batch=ns.serve_batch,
+                            k_max=ns.k_max)
+    users = [int(u) for u in ns.users.split(",")]
+    t0 = time.perf_counter()
+    items, uids = rec.recommend(users, k=ns.k)
+    dt = (time.perf_counter() - t0) * 1000
+    for u, row in zip(uids, items):
+        print(f"user {u}: top-{ns.k} -> {row.tolist()}")
+    print(f"latency: {dt:.1f} ms for {len(users)} users on {rec.trainer.device}")
+
+
+if __name__ == "__main__":
+    main()

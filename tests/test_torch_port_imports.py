@@ -1,0 +1,112 @@
+"""The port imports neither JAX nor gdmcf_tpu, and its entry points refuse to
+fall back to the CPU silently."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(
+        ".__init__", "")
+    for p in (ROOT / "gdmcf_torch").rglob("*.py"))
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    code = ("import importlib, sys\n"
+            f"for m in {MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'gdmcf_tpu', 'optax', 'orbax')))\n"
+            "print(len(sys.modules)); assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert len(MODULES) >= 15
+
+
+@pytest.mark.parametrize("path", ["gdmcf_torch", "chip_smoke.py"])
+def test_port_sources_name_no_reference_package(path):
+    files = ([ROOT / path] if path.endswith(".py")
+             else list((ROOT / path).rglob("*.py"))
+             + list((ROOT / path).rglob("*.cu")))
+    for f in files:
+        text = f.read_text()
+        for word in ("import jax", "from jax", "gdmcf_tpu", "optax"):
+            assert word not in text, f"{f} mentions {word!r}"
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_refuses_silent_cpu(monkeypatch):
+    from gdmcf_torch import resolve_device
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    import scipy.sparse as sp
+
+    from gdmcf_torch.config import Config
+    from gdmcf_torch.serve import build_recommender
+    from gdmcf_torch.train.trainer import Trainer
+
+    _no_cuda(monkeypatch)
+    csr = sp.csr_matrix(([1.0, 1.0], ([0, 1], [1, 2])), shape=(3, 4))
+    cfg = Config(backbone="lightGCN", dims=[8], steps=5, noise_scale=1e-4,
+                 sampling_steps=0)
+    assert cfg.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, 3, 4, train_csr=csr)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_recommender(cfg, None, csr, 3, 4)
+    # an explicit CPU request runs
+    rec = build_recommender(cfg, None, csr, 3, 4, device="cpu",
+                            serve_batch=4, k_max=2)
+    assert rec.recommend([0, 2], k=2)[0].shape == (2, 2)
+
+
+def test_serve_cli_device_flag_and_checkpoint_refusal(tmp_path, capsys):
+    import numpy as np
+
+    from gdmcf_torch.serve import main
+
+    rng = np.random.default_rng(0)
+    edges = np.stack([rng.integers(0, 12, 60), rng.integers(0, 9, 60)], 1)
+    edges[0] = [11, 8]
+    for name in ("train", "valid", "test"):
+        np.save(tmp_path / f"{name}_list.npy", edges)
+    base = ["--backbone", "lightGCN", "--dims", "[8]", "--steps", "5",
+            "--noise_scale", "1e-4", "--sampling_steps", "0",
+            "--data_path", str(tmp_path), "--users", "0,3,5", "--k", "4",
+            "--serve_batch", "2", "--k_max", "5"]
+    main(base + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "user 5: top-4" in out and "on cpu" in out
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        main(base + ["--device", "cpu", "--ckpt_dir_serve", str(tmp_path)])
+
+
+def test_other_backbones_name_their_roadmap_item():
+    from gdmcf_torch.config import Config
+    from gdmcf_torch.models.registry import build_model
+
+    g = torch.Generator().manual_seed(0)
+    for b in ("DNNOneHotEmbeddingGCN", "DNN"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            build_model(Config(backbone=b), 4, 5, generator=g, device="cpu")
+    with pytest.raises(ValueError):
+        build_model(Config(backbone="nope"), 4, 5, generator=g, device="cpu")
