@@ -1,27 +1,47 @@
 #!/usr/bin/env python3
-"""Drive gdmcf_torch's serving path on one NVIDIA GPU and check it.
+"""Drive gdmcf_torch's serving and training paths on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py                  # from the root of a checkout
-    python3 chip_smoke.py --profile FILE   # also writes a torch.profiler
-                                           # table of 5 dispatches to FILE
+    python3 chip_smoke.py --profile FILE   # also writes torch.profiler
+                                           # tables of 5 lightGCN dispatches,
+                                           # 5 flagship train steps and 5
+                                           # flagship dispatches
 
 Phases (any failure exits non-zero):
   1. build the CUDA kernels from gdmcf_torch/csrc/ and print the card;
-  2. kernel phase: every kernel against its plain PyTorch version on the
-     card (forward and transpose, br 8 and 128, empty row and column tiles,
-     duplicate COO entries, D 64, 50 and 100), rtol 1e-4 / atol 1e-5, TF32 off
-     on the plain side;
-  3. path phase: the lightGCN backbone with the Amazon-Book recipe widths on
-     a seeded power-law graph of the published Amazon-Book size (108,822
-     users x 94,949 items): build_recommender (demo mode; the init-time
-     propagation launches each kernel twice) and several recommend() calls,
-     checked for range, uniqueness, history exclusion and determinism; the
-     propagated tables are held against the plain propagation on the card;
-  4. timings (kernels, plain versions, torch.sparse.mm, propagation,
-     request p50), the kernel JSON line, the card's name and power limit,
-     and as the last line {"ok": true, "device": {...}}.
+  2. SpMM kernel phase: every SpMM kernel against its plain PyTorch version
+     on the card (forward and transpose, br 8 and 128, empty row and column
+     tiles, duplicate COO entries, D 64, 50 and 100), rtol 1e-4 / atol
+     1e-5, TF32 off on the plain side;
+  3. lightGCN path: the lightGCN backbone with the Amazon-Book recipe
+     widths on a seeded power-law graph of the published Amazon-Book size
+     (108,822 users x 94,949 items): build_recommender (demo mode; the
+     init-time propagation launches each SpMM kernel twice) and several
+     recommend() calls, checked for range, uniqueness, history exclusion
+     and determinism; the propagated tables are held against the plain
+     propagation on the card;
+  4. lightGCN timings (kernels, plain versions, torch.sparse.mm,
+     propagation, request p50); the recommender is then freed;
+  5. AdamW kernel phase: the Triton kernel against adamw_reference on the
+     card (0-d, [1024], [1000, 37], 65,535 and 65,537 elements and
+     [94,959, 1024]; bfloat16 and float32 moments; wd 0 and 0.01; three
+     steps each), within fused_adamw.update_bounds;
+  6. flagship training: a Trainer on configs/amazonOneEmbGcn.yaml
+     (DNNOneHotEmbeddingGCN at full width) over the same graph as a
+     NativeCSR, one train_epoch of 272 steps of 400, checked for finite
+     losses, full Lt rows, every parameter moved and one AdamW launch per
+     trainable tensor per step; one more step held leaf by leaf against
+     adamw_reference on clones; train-step p50/p90, and one AdamW pass
+     against its plain version, torch.optim.AdamW(fused=True) and the
+     byte bound;
+  7. flagship serving: a Recommender over the trained Trainer, the same
+     request checks, request p50/p90;
+  8. the kernel JSON line, the card's name and power limit, and as the
+     last line {"ok": true, "device": {...}}.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -34,6 +54,8 @@ N_USER, N_ITEM, N_EDGES = 108_822, 94_949, 2_200_000
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 TOL = dict(rtol=1e-4, atol=1e-5)
+FLAGSHIP_PARAMS = 697_972_335  # trainable elements at the Amazon-Book width
+ADAMW_FLOP_PER_ELEM = 16       # the update's float32 operations
 
 
 def log(*a):
@@ -155,11 +177,14 @@ def nnz_bytes(a, d, transpose):
     return k.numel() * 12 + (x_rows + out_rows) * d * 4
 
 
-def tpu_kernel_line(root: str, name: str) -> str:
-    """'file:line' of the Pallas kernel ``name`` in the repo (the JAX
-    package is read as text, never imported)."""
+def tpu_kernel_line(root: str, name: str, module: str = "spmm.py") -> str:
+    """'file:line' of the Pallas kernel ``name`` in ``ops/<module>`` of the
+    JAX package (read as text, never imported; the port's own package is
+    skipped)."""
     import glob
-    for path in sorted(glob.glob(os.path.join(root, "*", "ops", "spmm.py"))):
+    for path in sorted(glob.glob(os.path.join(root, "*", "ops", module))):
+        if os.path.relpath(path, root).startswith("gdmcf_torch"):
+            continue
         with open(path) as fh:
             for no, line in enumerate(fh, 1):
                 if line.startswith(f"def {name}("):
@@ -185,18 +210,83 @@ def library_operand(a, torch, transpose, n_x):
         return coo.coalesce().to_sparse_csr()
 
 
-def main() -> int:
-    import argparse
+def flagship_matmul_flops(cfg, n_item: int, batch: int, train: bool):
+    """Matmul flops of one flagship forward (``train``: forward and
+    backward) at ``batch``, from the shapes: the two towers, NT-Xent's
+    [B, B] similarity, the GCN user rows and the cosine head. The backward
+    of a tower needs only its weight gradient (the input has none); the
+    others need both operand gradients."""
+    d = cfg.dims[-1]
+    d_item = 3 * d
+    towers = 2 * batch * ((n_item + cfg.emb_size)
+                          + (2 * n_item + cfg.emb_size)) * d
+    gcn = 2 * batch * d_item * 512 * 2 if cfg.gcnLayerNum == 2 else 0
+    rest = 2 * batch * d_item * n_item + gcn
+    if not train:
+        return towers + rest
+    return 2 * towers + 3 * (rest + 2 * batch * batch * d)
 
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--profile", metavar="FILE", default=None,
-                        help="write a torch.profiler table of 5 dispatches")
-    args = parser.parse_args()
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+def check_requests(rec, csr, n_item: int, label: str):
+    """Range, uniqueness, history exclusion and determinism of a few
+    recommend() calls; returns 300 sampled users."""
+    rng = np.random.default_rng(1)
+    history = csr.tolil().rows
+    users_a = rng.choice(csr.shape[0], 5, replace=False)
+    users_b = rng.choice(csr.shape[0], 300, replace=False)  # two dispatches
+    items_a, _ = rec.recommend(users_a, k=20)
+    items_b, _ = rec.recommend(users_b, k=100)
+    items_c, _ = rec.recommend(users_a[:3], k=10, exclude_history=False)
+    items_a2, _ = rec.recommend(users_a, k=20)
+    for items, users, excl in ((items_a, users_a, True),
+                               (items_b, users_b, True),
+                               (items_c, users_a[:3], False)):
+        assert items.shape[0] == len(users)
+        assert ((items >= 0) & (items < n_item)).all(), "ids out of range"
+        for row, u in zip(items, users):
+            assert len(set(row.tolist())) == len(row), "duplicate ids"
+            if excl:
+                assert not set(row.tolist()) & set(history[u]), \
+                    "a history item was recommended"
+    assert np.array_equal(items_a, items_a2), "same users, different ids"
+    log(f"{label} requests ok: {items_a.shape} {items_b.shape} "
+        f"{items_c.shape}; sample {items_a[0][:10].tolist()}")
+    return users_b
+
+
+def request_times(rec, users, card: str, label: str):
+    excl = np.ones(len(users), dtype=bool)
+    times = []
+    for _ in range(25):
+        t0 = time.perf_counter()
+        rec.recommend_batch(users, excl)
+        times.append((time.perf_counter() - t0) * 1e3)
+    p50 = float(np.percentile(times, 50))
+    log(f"{label} request (256 users, k_max 100): p50 {p50:.3f} ms, p90 "
+        f"{float(np.percentile(times, 90)):.3f} ms over {len(times)} "
+        f"dispatches [{card}]")
+    return excl
+
+
+def write_profile(path: str, card: str, title: str, fn, torch, mode="w"):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, mode) as fh:
+        fh.write(f"{card}\n{title}\n")
+        fh.write(prof.key_averages().table(sort_by="cuda_time_total",
+                                           row_limit=25))
+        fh.write("\n")
+    log(f"profile of {title} written to {path}")
+
+
+def serve_lightgcn(args, root, card, torch, errors):
+    """Phases 3-4: the lightGCN serving path and the SpMM timings; returns
+    the SpMM kernel entries of the kernels line."""
     from gdmcf_torch.config import load_config
     from gdmcf_torch.models import lightgcn as lg
     from gdmcf_torch.models.backbones import DNNlightGCN
@@ -204,25 +294,6 @@ def main() -> int:
     from gdmcf_torch.serve import build_recommender
     from gdmcf_torch.train.trainer import matmul_precision
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    card = card_line()
-
-    # 1. build
-    t0 = time.perf_counter()
-    S.build_kernels()
-    log(f"build: {time.perf_counter() - t0:.1f} s")
-    for line in S.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            log("ptxas:", line.strip())
-    log(card)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
-        f"{torch.cuda.get_device_name(0)}")
-
-    # 2. kernel phase (TF32 off on the plain side)
-    with matmul_precision(tf32=False):
-        errors = kernel_phase(S, torch)
-
-    # 3. path phase
     t0 = time.perf_counter()
     csr = power_law_graph(seed=0)
     log(f"graph: {N_USER} x {N_ITEM}, {csr.nnz} edges "
@@ -245,32 +316,11 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     init_launches = dict(S.LAUNCHES)
     log(f"build_recommender: {build_s:.1f} s, launches {init_launches}")
-
-    rng = np.random.default_rng(1)
-    history = csr.tolil().rows
-    users_a = rng.choice(N_USER, 5, replace=False)
-    users_b = rng.choice(N_USER, 300, replace=False)   # two dispatches
-    items_a, _ = rec.recommend(users_a, k=20)
-    items_b, _ = rec.recommend(users_b, k=100)
-    items_c, _ = rec.recommend(users_a[:3], k=10, exclude_history=False)
-    items_a2, _ = rec.recommend(users_a, k=20)
+    users_b = check_requests(rec, csr, N_ITEM, "lightGCN")
     launches = dict(S.LAUNCHES)
     assert launches == init_launches, "requests must launch no SpMM kernel"
     for name in ("spmm_csr_fwd", "spmm_csc_t"):
         assert launches[name] > 0, f"{name} was not launched on the path"
-    for items, users, excl in ((items_a, users_a, True),
-                               (items_b, users_b, True),
-                               (items_c, users_a[:3], False)):
-        assert items.shape[0] == len(users)
-        assert ((items >= 0) & (items < N_ITEM)).all(), "ids out of range"
-        for row, u in zip(items, users):
-            assert len(set(row.tolist())) == len(row), "duplicate ids"
-            if excl:
-                assert not set(row.tolist()) & set(history[u]), \
-                    "a history item was recommended"
-    assert np.array_equal(items_a, items_a2), "same users, different ids"
-    log(f"requests ok: {items_a.shape} {items_b.shape} {items_c.shape}; "
-        f"sample {items_a[0][:10].tolist()}")
 
     # the propagated tables against the plain propagation on the card
     model = rec.trainer.model
@@ -343,31 +393,294 @@ def main() -> int:
             f"nonzero-only bound {nnz_bound:.4f} ms [{card}]")
 
     users = users_b[:256]
-    excl = np.ones(256, dtype=bool)
+    excl = request_times(rec, users, card, "lightGCN")
+    if args.profile:
+        write_profile(args.profile, card, "5 lightGCN dispatches of 256 users",
+                      lambda: [rec.recommend_batch(users, excl)
+                               for _ in range(5)], torch)
+    return kernels, csr
+
+
+def leaf_errors(got, want, bounds):
+    """(max |got - want| over p, mu, nu; count over their bounds)."""
+    err, over = 0.0, 0
+    for g, w, b in zip(got, want, bounds):
+        d = (g.float() - w.float()).abs()
+        err = max(err, d.max().item())
+        over += int((d > b).sum())
+    return err, over
+
+
+def adamw_phase(FA, torch):
+    """Phase 5: the Triton kernel against adamw_reference, three steps
+    from the same inputs each, within update_bounds."""
+    gen = torch.Generator("cuda").manual_seed(0)
+    worst = 0.0
+    for shape in ((), (1024,), (1000, 37), (65_535,), (65_537,),
+                  (94_959, 1024)):
+        for mdt in (torch.bfloat16, torch.float32):
+            for wd in (0.0, 0.01):
+                p = torch.randn(shape, generator=gen, device="cuda")
+                mu = torch.zeros(shape, dtype=mdt, device="cuda")
+                nu = torch.zeros(shape, dtype=mdt, device="cuda")
+                count = torch.zeros((), dtype=torch.int32, device="cuda")
+                err, over, differ = 0.0, 0, 0
+                for _ in range(3):
+                    g = 0.1 * torch.randn(shape, generator=gen,
+                                          device="cuda")
+                    count = count + 1
+                    c = FA.step_scalars(count, 1e-3)
+                    want = FA.adamw_reference(p, g, mu, nu, c, wd=wd)
+                    bounds = FA.update_bounds(p, g, mu, nu, c, wd=wd)
+                    FA.adamw_update_(p, g, mu, nu, c, wd=wd)
+                    torch.cuda.synchronize()
+                    e, o = leaf_errors((p, mu, nu), want, bounds)
+                    err, over = max(err, e), over + o
+                    differ += int((mu != want[1]).sum()
+                                  + (nu != want[2]).sum())
+                    # continue from the plain state, so steps 2 and 3
+                    # start from the same inputs again
+                    p, mu, nu = want
+                log(f"adamw {tuple(shape)} {str(mdt)[6:]} wd={wd}: "
+                    f"max|kernel-plain| {err:.3e}, {over} over "
+                    f"update_bounds, moments differing {differ} of "
+                    f"{6 * max(p.numel(), 1)}")
+                assert over == 0, "the AdamW kernel is over its tolerance"
+                worst = max(worst, err)
+    return worst
+
+
+def flagship_train(args, root, card, torch, csr, worst):
+    """Phase 6: one epoch of the flagship at full width, the AdamW check
+    on a further step, and the timings. Returns (trainer, kernel entry)."""
+    from gdmcf_torch.config import load_config
+    from gdmcf_torch.data.loader import epoch_batches
+    from gdmcf_torch.data.native import NativeCSR
+    from gdmcf_torch.ops import fused_adamw as FA
+    from gdmcf_torch.ops import spmm as S
+    from gdmcf_torch.train.trainer import Trainer
+
+    cfg = load_config(os.path.join(root, "configs", "amazonOneEmbGcn.yaml"),
+                      {"device": "cuda"})
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, N_USER, N_ITEM)
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params.values())
+    n_leaves = len(state.params)
+    log(f"flagship {cfg.backbone}: {n_params} trainable elements in "
+        f"{n_leaves} tensors, moments {cfg.opt_moment_dtype}, batch "
+        f"{cfg.batch_size}, lr {cfg.lr}, steps {cfg.steps}, noise_scale "
+        f"{cfg.noise_scale}, TF32 {'on' if trainer.tf32 else 'off'} "
+        f"(init {time.perf_counter() - t0:.1f} s)")
+    assert n_params == FLAGSHIP_PARAMS, n_params
+    dataset = NativeCSR.from_scipy(csr)
+    before = {k: p.detach().clone() for k, p in state.params.items()}
+
+    FA.reset_launch_counts()
+    S.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, total = trainer.train_epoch(state, dataset,
+                                       np.random.default_rng(0))
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = dict(FA.LAUNCHES)
+    steps = N_USER // cfg.batch_size
+    log(f"train_epoch: {state.step} steps in {epoch_s:.2f} s, loss sum "
+        f"{total:.6e}, launches {launches}, SpMM launches {dict(S.LAUNCHES)}")
+    assert state.step == steps == 272
+    assert np.isfinite(total), "a train-step loss is not finite"
+    assert launches["fused_adamw"] == n_leaves * steps
+    assert bool((state.lt.count == cfg.history_num_per_term).all()), \
+        "an Lt row is not full"
+    for k, p in state.params.items():
+        assert bool((p.detach() != before[k]).any()), f"{k} did not move"
+    del before
+
+    # one more step, its update held leaf by leaf against the plain version
+    def stream(seed=1):
+        while True:
+            yield from epoch_batches(dataset, cfg.batch_size,
+                                     np.random.default_rng(seed), packed=True)
+            seed += 1
+    batches = stream()
+    x, idx = next(batches)
+    loss, grads, new_lt = trainer.loss_and_grads(
+        state, torch.from_numpy(x), torch.from_numpy(idx))
+    opt = state.opt_state
+    p0 = {k: p.detach().clone() for k, p in state.params.items()}
+    mu0 = {k: m.clone() for k, m in opt.mu.items()}
+    nu0 = {k: m.clone() for k, m in opt.nu.items()}
+    c = FA.step_scalars(opt.count + 1, cfg.lr)
+    trainer.apply_grads(state, grads, new_lt)
+    torch.cuda.synchronize()
+    step_err, over = 0.0, 0
+    for k, p in state.params.items():
+        args_k = (p0[k], grads[k], mu0[k], nu0[k], c)
+        want = FA.adamw_reference(*args_k, wd=cfg.weight_decay)
+        bounds = FA.update_bounds(*args_k, wd=cfg.weight_decay)
+        e, o = leaf_errors((p, state.opt_state.mu[k], state.opt_state.nu[k]),
+                           want, bounds)
+        step_err, over = max(step_err, e), over + o
+        del want, bounds
+    log(f"flagship step {state.step}: loss {loss.item():.6e}; AdamW kernel "
+        f"vs plain over all {n_leaves} tensors: max abs err {step_err:.3e}, "
+        f"{over} over update_bounds")
+    assert over == 0 and bool(torch.isfinite(loss))
+    worst = max(worst, step_err)
+
+    # train-step times: batches assembled first, the step times include
+    # the host->device copy of the packed batch and the unpack
+    pre = [next(batches) for _ in range(25)]
     times = []
-    for _ in range(25):
+    for x, idx in pre:
+        xt, it = torch.from_numpy(x), torch.from_numpy(idx)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rec.recommend_batch(users, excl)
+        trainer.train_step(state, xt, it)
+        torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    times = times[5:]
     p50 = float(np.percentile(times, 50))
-    log(f"request (256 users, k_max 100): p50 {p50:.3f} ms, p90 "
-        f"{float(np.percentile(times, 90)):.3f} ms over {len(times)} "
-        f"dispatches [{card}]")
+    log(f"flagship train step (batch {cfg.batch_size}): p50 {p50:.3f} ms, "
+        f"p90 {float(np.percentile(times, 90)):.3f} ms over {len(times)} "
+        f"steps, {cfg.batch_size / p50 * 1e3:.1f} examples/s; matmul work "
+        f"{flagship_matmul_flops(cfg, N_ITEM, cfg.batch_size, True):.4e} "
+        f"flop per step from shapes [{card}]")
+
+    # one AdamW pass over every trainable tensor, on the clones
+    st0 = FA.FusedAdamWState(count=opt.count.clone(), mu=mu0, nu=nu0)
+    pass_ms = cuda_ms(lambda: FA.fused_adamw_apply(p0, grads, st0,
+                                                   lr=cfg.lr), iters=10,
+                      warmup=2)
+
+    def plain_pass():
+        cc = FA.step_scalars(st0.count + 1, cfg.lr)
+        for k in p0:
+            FA.adamw_reference(p0[k], grads[k], mu0[k], nu0[k], cc)
+    plain_ms = cuda_ms(plain_pass, iters=3, warmup=1)
+    lib_params = [torch.nn.Parameter(p0[k]) for k in p0]
+    for lp, k in zip(lib_params, p0):
+        lp.grad = grads[k]
+    lib_opt = torch.optim.AdamW(lib_params, lr=cfg.lr, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=cfg.weight_decay,
+                                fused=True)
+    lib_ms = cuda_ms(lib_opt.step, iters=10, warmup=2)
+    del lib_opt, lib_params
+    mb = 2 if cfg.opt_moment_dtype == "bfloat16" else 4
+    nbytes = (12 + 4 * mb) * n_params
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = ADAMW_FLOP_PER_ELEM * n_params / F32_FLOP_PER_S * 1e3
+    log(f"fused_adamw: {pass_ms:.4f} ms per pass of {n_leaves} launches "
+        f"({pass_ms / n_leaves:.4f} ms per launch), plain {plain_ms:.4f} ms, "
+        f"torch.optim.AdamW(fused=True, float32 moments, 28 B/element) "
+        f"{lib_ms:.4f} ms, byte bound {bound_bytes:.4f} ms ({nbytes} B at "
+        f"{12 + 4 * mb} B/element), operation bound {bound_ops:.4f} ms "
+        f"[{card}]")
+    entry = {
+        "name": "fused_adamw", "route": "triton",
+        "source": "gdmcf_torch/ops/fused_adamw.py",
+        "replaces": tpu_kernel_line(root, "_adamw_kernel", "fused_adamw.py"),
+        "launches": launches["fused_adamw"],
+        "max_abs_err": worst,
+        "ms": pass_ms, "ms_per_launch": pass_ms / n_leaves,
+        "launches_per_pass": n_leaves, "plain_ms": plain_ms,
+        "bound_ms": max(bound_bytes, bound_ops),
+        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        "library_ms": lib_ms,
+    }
+    del p0, mu0, nu0, st0, grads
+    gc.collect()
+    torch.cuda.empty_cache()
 
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                rec.recommend_batch(users, excl)
-            torch.cuda.synchronize()
-        path = os.path.abspath(args.profile)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        with open(path, "w") as fh:
-            fh.write(f"{card}\n5 dispatches of 256 users\n")
-            fh.write(prof.key_averages().table(sort_by="cuda_time_total",
-                                               row_limit=25))
-        log(f"profile of 5 dispatches written to {path}")
+        prof_batches = [next(batches) for _ in range(5)]
+        write_profile(
+            args.profile, card, f"5 flagship train steps of "
+            f"{cfg.batch_size}",
+            lambda: [trainer.train_step(state, torch.from_numpy(x),
+                                        torch.from_numpy(i))
+                     for x, i in prof_batches], torch, mode="a")
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB")
+    return trainer, entry
+
+
+def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", metavar="FILE", default=None,
+                        help="write torch.profiler tables of 5 lightGCN "
+                             "dispatches, 5 flagship train steps and 5 "
+                             "flagship dispatches")
+    args = parser.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gdmcf_torch.ops import fused_adamw as FA
+    from gdmcf_torch.ops import spmm as S
+    from gdmcf_torch.serve import build_recommender
+    from gdmcf_torch.train.trainer import matmul_precision
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    card = card_line()
+
+    # 1. build
+    t0 = time.perf_counter()
+    S.build_kernels()
+    log(f"nvcc build: {time.perf_counter() - t0:.1f} s")
+    for line in S.BUILD_LOG.splitlines():
+        if "registers" in line or "spill" in line:
+            log("ptxas:", line.strip())
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+        f"{torch.cuda.get_device_name(0)}")
+
+    # 2. SpMM kernel phase (TF32 off on the plain side)
+    with matmul_precision(tf32=False):
+        errors = kernel_phase(S, torch)
+
+    # 3-4. lightGCN serving, then free it
+    kernels, csr = serve_lightgcn(args, root, card, torch, errors)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. AdamW kernel phase
+    t0 = time.perf_counter()
+    FA.build_kernel()
+    worst = adamw_phase(FA, torch)
+    log(f"adamw phase (Triton build included): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 6. flagship training
+    torch.cuda.reset_peak_memory_stats()
+    trainer, entry = flagship_train(args, root, card, torch, csr, worst)
+    kernels.append(entry)
+
+    # 7. flagship serving from the trained trainer
+    FA.reset_launch_counts()
+    S.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = build_recommender(trainer.cfg, None, csr, N_USER, N_ITEM,
+                            trainer=trainer, serve_batch=256, k_max=100)
+    log(f"flagship build_recommender: {time.perf_counter() - t0:.1f} s")
+    users_b = check_requests(rec, csr, N_ITEM, "flagship")
+    assert FA.LAUNCHES["fused_adamw"] == 0 and not any(S.LAUNCHES.values())
+    users = users_b[:256]
+    excl = request_times(rec, users, card, "flagship")
+    log(f"flagship request matmul work: {trainer.cfg.steps} forwards of "
+        f"{flagship_matmul_flops(trainer.cfg, N_ITEM, 256, False):.4e} flop "
+        f"from shapes")
+    if args.profile:
+        write_profile(args.profile, card, "5 flagship dispatches of 256 users",
+                      lambda: [rec.recommend_batch(users, excl)
+                               for _ in range(5)], torch, mode="a")
+
+    # 8. results
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -5,11 +5,16 @@ The JAX tree (given as numpy arrays, nested dicts and lists) and the port's
 
     emb_layer.{w, b}         <-> emb_layer.{weight, bias}
     in_layers[N].{w, b}      <-> in_layers.N.{weight, bias}
+    in_layers2[N].{w, b}     <-> in_layers2.N.{weight, bias}
     out_layers[N].{w, b}     <-> out_layers.N.{weight, bias}
+    gcn/conv{1,2}/{w, b}     <-> gcn.conv{1,2}.{weight, bias}
+    embedding_{item,user}    <-> embedding_{item,user}   (as stored)
+    sumW                     <-> sumW                    (0-d)
     frozen_lgn_{user,item}   <-> frozen_lgn_{user,item}
 
 Every ``w`` is transposed: the JAX package stores [d_in, d_out] and
-computes ``x @ w``; ``nn.Linear`` stores [out, in].
+computes ``x @ w``; ``nn.Linear`` stores [out, in]. Any other leaf keeps
+its name and layout.
 """
 
 from __future__ import annotations

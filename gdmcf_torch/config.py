@@ -147,7 +147,8 @@ class Config:
             raise ValueError("lr_schedule must be constant, cosine or linear")
         if self.opt_moment_dtype not in ("bfloat16", "float32"):
             raise ValueError("opt_moment_dtype must be bfloat16 or float32")
-        # opt_impl is read by the train step, which this slice does not port
+        # opt_impl: every value but the JAX package's optimizer chain
+        # selects the single-pass AdamW (train/state.py refuses that one)
         if self.device.split(":")[0] not in ("cuda", "cpu"):
             raise ValueError(f"device must be cuda or cpu, got {self.device!r}")
 

@@ -1,13 +1,17 @@
-"""Edge-list ``.npy`` triples -> scipy CSR user x item matrices (the port's
-copy of the JAX package's ``data/loader.py:data_load`` and
-``data_load_dir``)."""
+"""Edge-list ``.npy`` triples -> scipy CSR user x item matrices, and the
+epoch's batches (the port's copy of the JAX package's ``data/loader.py``:
+``data_load``, ``data_load_dir``, ``DiffusionDataset``, ``epoch_stop`` and
+``epoch_batches``)."""
 
 from __future__ import annotations
 
 import os
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
+
+from gdmcf_torch.ops.bitpack import is_binary, pack_rows
 
 
 def data_load(train_path: str, valid_path: str, test_path: str):
@@ -54,3 +58,65 @@ def data_load_dir(data_path: str):
     return data_load(os.path.join(data_path, "train_list.npy"),
                      os.path.join(data_path, "valid_list.npy"),
                      os.path.join(data_path, "test_list.npy"))
+
+
+class DiffusionDataset:
+    """Dense float32 rows of a CSR interaction matrix; row i is user i.
+    At catalog sizes where the dense rows do not fit the host (Amazon-Book
+    would take 41 GB), ``data.native.NativeCSR`` serves the same
+    ``gather``/``gather_packed`` interface from the sparse structure."""
+
+    def __init__(self, csr: sp.spmatrix, n_rows: Optional[int] = None):
+        if n_rows is not None:
+            csr = csr[:n_rows]
+        # cast before densifying: a float64 dense would double the peak
+        self.rows = np.ascontiguousarray(csr.astype(np.float32).toarray())
+        # count cells > 1 (duplicate pairs) or weights cannot be packed
+        self.binary = is_binary(self.rows)
+
+    def __len__(self) -> int:
+        return self.rows.shape[0]
+
+    def gather(self, idx: np.ndarray) -> np.ndarray:
+        return self.rows[idx]
+
+    def gather_packed(self, idx: np.ndarray) -> np.ndarray:
+        """Bit-packed batch (``ops/bitpack`` wire format); binary rows."""
+        return pack_rows(self.rows[idx])
+
+
+def epoch_stop(n: int, batch_size: int, drop_last: bool) -> int:
+    """Rows an epoch iterates: ``drop_last`` trims to full batches, except
+    that a dataset smaller than one batch gives its one partial batch (the
+    reference would train on nothing)."""
+    stop = (n // batch_size) * batch_size if drop_last else n
+    if stop == 0 and n > 0:
+        stop = n
+    return stop
+
+
+def epoch_batches(dataset, batch_size: int,
+                  rng: Optional[np.random.Generator] = None,
+                  shuffle: bool = True, drop_last: bool = True,
+                  packed: bool = False
+                  ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Yield (x [B, n_item] float32, index [B] int32) batches; the index is
+    the row position, the user id. ``packed`` (binary datasets only) ships
+    x as the bit-packed uint8 wire format."""
+    n = len(dataset)
+    order = np.arange(n)
+    if shuffle:
+        if rng is None:
+            rng = np.random.default_rng()
+        rng.shuffle(order)
+    stop = epoch_stop(n, batch_size, drop_last)
+    if packed:
+        gather = getattr(dataset, "gather_packed", None)
+        if gather is None:
+            def gather(idx):
+                return pack_rows(dataset.gather(idx))
+    else:
+        gather = dataset.gather
+    for start in range(0, stop, batch_size):
+        idx = order[start:start + batch_size]
+        yield gather(idx), idx.astype(np.int32)

@@ -1,17 +1,23 @@
-"""Graph-diffusion engine, discrete class: corruption and the reverse sampler.
+"""Graph-diffusion engine, discrete class: corruption, the training loss
+with importance-sampled timesteps, and the reverse sampler.
 
-Port of the JAX package's ``diffusion/engine.py`` for what serving needs. The
-2-state discrete channel is a per-cell Bernoulli on the closed-form
-probability of state 1; the reverse sampler is a Python loop over the T
-steps with the degree-guided synthetic-graph growth.
+Port of the JAX package's ``diffusion/engine.py``. The 2-state discrete
+channel is a per-cell Bernoulli on the closed-form probability of state 1;
+the reverse sampler is a Python loop over the T steps with the
+degree-guided synthetic-graph growth. The importance sampler's loss history
+(``LtState``) lives on the device and is updated there: no step reads a
+value back to the host.
 
 Random draws: every stochastic function takes either an explicit
-``torch.Generator`` or pre-drawn uniforms/normals, so tests can inject the
-JAX package's own draws (``bernoulli(p)`` is ``uniform < p`` in both).
+``torch.Generator`` or pre-drawn uniforms/normals/timesteps, so tests can
+inject the JAX package's own draws (``bernoulli(p)`` is ``uniform < p`` in
+both).
 
 Fidelity quirks kept (``fidelity=True``): alpha_bar of the discrete channel
-is ``ts / batch_size`` (clipped to [0, 1]); discrete noise only deletes.
-The ``legacy`` and ``ablation`` variants are not ported yet.
+is ``ts / batch_size`` (clipped to [0, 1]); discrete noise only deletes;
+timesteps are drawn twice per training step (the second draw drives the
+model, the weight and the Lt update). The ``legacy`` and ``ablation``
+variants are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,7 +53,47 @@ class PSampleDraws(NamedTuple):
     noise: Sequence[torch.Tensor] = ()
 
 
-# model(x, t, x_U, index=..., graph=...) -> (scores, closs or None)
+class TimestepDraws(NamedTuple):
+    """Pre-drawn timesteps [B] of both ``sample_timesteps`` branches."""
+
+    uniform: torch.Tensor
+    importance: torch.Tensor
+
+
+class TrainDraws(NamedTuple):
+    """Pre-drawn randomness for ``training_losses``, in its order: the
+    one-hot channel's timesteps and corruption uniforms [B, n], the model's
+    timesteps and normals [B, n], then the model's dropout uniforms."""
+
+    ts_u: Optional[TimestepDraws] = None
+    corrupt_u: Optional[torch.Tensor] = None
+    ts: Optional[TimestepDraws] = None
+    noise: Optional[torch.Tensor] = None
+    dropout: Sequence[torch.Tensor] = ()
+
+
+class LtState(NamedTuple):
+    """Importance-sampling state: a per-timestep ring of recent losses."""
+
+    history: torch.Tensor  # [steps, history_num_per_term] float32
+    count: torch.Tensor    # [steps] int32
+
+    @staticmethod
+    def create(steps: int, history_num_per_term: int = 10,
+               device=None) -> "LtState":
+        return LtState(
+            history=torch.zeros((steps, history_num_per_term),
+                                dtype=torch.float32, device=device),
+            count=torch.zeros((steps,), dtype=torch.int32, device=device))
+
+
+def mean_flat(x: torch.Tensor) -> torch.Tensor:
+    """Mean over all non-batch dimensions."""
+    return x.reshape(x.shape[0], -1).mean(dim=1)
+
+
+# model(x, t, x_U, index=..., graph=..., rcloss=..., generator=...,
+#       dropout_u=...) -> (scores, closs or None)
 ModelApply = Callable[..., tuple]
 
 
@@ -73,6 +119,8 @@ class Diffusion:
     cat_one_hot: bool = True     # OneHotMatrix == 2
     user_guided: bool = True
     fidelity: bool = True
+    history_num_per_term: int = 10
+    uniform_prob: float = 0.001
 
     @staticmethod
     def create(cfg, variant: str = "discrete", device=None) -> "Diffusion":
@@ -91,7 +139,9 @@ class Diffusion:
             mean_type=mean_type, steps=cfg.steps,
             noise_scale=cfg.noise_scale, discrete_eps=cfg.discrete,
             coeffs=coeffs, cat_one_hot=(cfg.OneHotMatrix == 2),
-            user_guided=bool(cfg.user_guided), fidelity=cfg.fidelity)
+            user_guided=bool(cfg.user_guided),
+            fidelity=cfg.fidelity,
+            history_num_per_term=cfg.history_num_per_term)
 
     # -- continuous channel ------------------------------------------------
     def q_sample(self, x_start, t, noise):
@@ -109,6 +159,11 @@ class Diffusion:
         c = self.coeffs
         return (extract(c.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t
                 - extract(c.sqrt_recipm1_alphas_cumprod, t, x_t.ndim) * eps)
+
+    def snr(self, t: torch.Tensor) -> torch.Tensor:
+        """alpha_bar / (1 - alpha_bar); t = -1 wraps to the last step."""
+        ac = self.coeffs.alphas_cumprod[t]
+        return ac / (1.0 - ac)
 
     # -- discrete channel --------------------------------------------------
     def _alpha_bar_discrete(self, ts: torch.Tensor,
@@ -141,6 +196,138 @@ class Diffusion:
         c1 = x_binary * s
         c0 = (1.0 - x_binary) * (1.0 - s)
         return torch.stack([c0, c1], dim=-1)
+
+    # -- timestep importance sampling --------------------------------------
+    def sample_timesteps(self, lt: LtState, batch_size: int,
+                         generator: Optional[torch.Generator] = None,
+                         draws: Optional[TimestepDraws] = None):
+        """(t [B] int64, pt [B] float32). Uniform draws (pt = 1) until every
+        Lt row is full; then draws by importance, sqrt(E[loss^2]) with a
+        ``uniform_prob`` floor, and pt = pt_all[t] * steps. Both branches
+        are drawn and the choice is made on the device, so no step waits
+        for the host. Own draws: ``randint`` for the uniform branch, the
+        inverse CDF of one uniform for the importance branch."""
+        dev = lt.history.device
+        all_full = (lt.count == self.history_num_per_term).all()
+        lt_sqrt = torch.sqrt((lt.history ** 2).mean(dim=-1))
+        pt_all = lt_sqrt / lt_sqrt.sum()
+        pt_all = (pt_all * (1.0 - self.uniform_prob)
+                  + self.uniform_prob / self.steps)
+        if draws is None:
+            t_uni = torch.randint(0, self.steps, (batch_size,),
+                                  generator=generator, device=dev)
+            u = torch.rand((batch_size,), generator=generator, device=dev)
+            cdf = torch.cumsum(pt_all, dim=0)
+            t_imp = torch.searchsorted(cdf, u * cdf[-1], right=True)
+        else:
+            t_uni, t_imp = (draws.uniform.to(dev).long(),
+                            draws.importance.to(dev).long())
+        # before the rows fill, pt_all may be NaN; that branch is not taken
+        t_imp = t_imp.clamp(0, self.steps - 1)
+        t = torch.where(all_full, t_imp, t_uni)
+        pt = torch.where(all_full, pt_all[t] * self.steps,
+                         torch.ones((batch_size,), device=dev))
+        return t, pt
+
+    def update_lt(self, lt: LtState, ts: torch.Tensor,
+                  losses: torch.Tensor) -> LtState:
+        """The ring update in closed form, for all timesteps at once: each
+        row's first ``count`` entries, then that timestep's batch losses in
+        batch order; keep the last H and saturate the count. Equal to the
+        reference's per-example loop (``update_lt_sequential``)."""
+        h = self.history_num_per_term
+        b = ts.shape[0]
+        dev = lt.history.device
+        losses = losses.detach().to(lt.history.dtype)
+        mask = ts[None, :] == torch.arange(self.steps, device=dev)[:, None]
+        c = lt.count.long()
+        seq = torch.zeros((self.steps, h + b), dtype=lt.history.dtype,
+                          device=dev)
+        seq[:, :h] = torch.where(torch.arange(h, device=dev)[None, :]
+                                 < c[:, None], lt.history, 0.0)
+        # this step's losses go to c, c+1, ...; the others add 0 to a
+        # parked last cell
+        pos = c[:, None] + torch.cumsum(mask, dim=1) - 1
+        pos = torch.where(mask, pos, h + b - 1)
+        seq.scatter_add_(1, pos, torch.where(mask, losses[None, :], 0.0))
+        total = c + mask.sum(dim=1)
+        start = (total - h).clamp_min(0)
+        rows = torch.gather(seq, 1, start[:, None]
+                            + torch.arange(h, device=dev)[None, :])
+        return LtState(history=rows,
+                       count=total.clamp_max(h).to(torch.int32))
+
+    def update_lt_sequential(self, lt: LtState, ts: torch.Tensor,
+                             losses: torch.Tensor) -> LtState:
+        """The reference's loop, one example at a time (append while
+        filling, shift left once full); the oracle of ``update_lt``."""
+        h = self.history_num_per_term
+        hist, cnt = lt.history.clone(), lt.count.clone()
+        losses = losses.detach().to(hist.dtype)
+        for i in range(ts.shape[0]):
+            t, loss = int(ts[i]), losses[i]
+            if int(cnt[t]) >= h:
+                hist[t] = torch.cat([hist[t, 1:], loss[None]])
+            else:
+                hist[t, int(cnt[t])] = loss
+                cnt[t] += 1
+        return LtState(history=hist, count=cnt)
+
+    # -- training loss -----------------------------------------------------
+    def training_losses(self, model: ModelApply, x_start: torch.Tensor,
+                        index: torch.Tensor, lt: LtState,
+                        reweight: bool = True,
+                        generator: Optional[torch.Generator] = None,
+                        draws: Optional[TrainDraws] = None):
+        """(per-example loss [B], new LtState, aux dict). Draws in the JAX
+        package's order: the one-hot channel's timesteps, its corruption,
+        the model's timesteps, the noise, then the model's dropout."""
+        if self.coeffs is None and reweight:
+            raise ValueError(
+                "noise_scale=0 builds no diffusion coefficient tables; "
+                "training requires reweight=False in that mode")
+        draws = draws or TrainDraws()
+        B = x_start.shape[0]
+        x_tU = None
+        if self.cat_one_hot:
+            ts_u, _ = self.sample_timesteps(lt, B, generator, draws.ts_u)
+            x_tU = self.corrupt_discrete(ts_u, x_start, generator,
+                                         draws.corrupt_u)
+        ts, pt = self.sample_timesteps(lt, B, generator, draws.ts)
+        noise = _normal(x_start.shape, x_start, generator, draws.noise)
+        x_t = (self.q_sample(x_start, ts, noise) if self.noise_scale != 0.0
+               else x_start)
+        # every ported backbone takes index and graph (the reference's
+        # indexIn path), where the contrastive loss is requested
+        model_output, closs = model(x_t, ts, x_tU, index=index, graph=x_tU,
+                                    rcloss=self.cat_one_hot,
+                                    generator=generator,
+                                    dropout_u=draws.dropout)
+        target = x_start if self.mean_type == MeanType.START_X else noise
+        assert model_output.shape == target.shape == x_start.shape
+        mse = mean_flat((target - model_output) ** 2)
+        if not reweight:
+            weight, loss = torch.ones_like(mse), mse
+        elif self.mean_type == MeanType.START_X:
+            weight = torch.where(ts == 0, 1.0, self.snr(ts - 1) - self.snr(ts))
+            loss = mse
+        else:
+            c = self.coeffs
+            ac, ac_prev = c.alphas_cumprod[ts], c.alphas_cumprod_prev[ts]
+            weight = (1.0 - ac) / ((1.0 - ac_prev) ** 2
+                                   * (1.0 - c.betas[ts]))
+            weight = torch.where(ts == 0, 1.0, weight)
+            likelihood = mean_flat((x_start - self.predict_xstart_from_eps(
+                x_t, ts, model_output)) ** 2 / 2.0)
+            loss = torch.where(ts == 0, likelihood, mse)
+        weighted = weight * loss
+        new_lt = self.update_lt(lt, ts, weighted)
+        final = weighted / pt
+        if closs is not None:
+            final = final + closs * 0.1
+        aux = {"mse": mse, "ts": ts, "pt": pt,
+               "closs": closs if closs is not None else mse.new_zeros(())}
+        return final, new_lt, aux
 
     # -- reverse sampler ---------------------------------------------------
     def p_sample(self, model: ModelApply, x_start: torch.Tensor,

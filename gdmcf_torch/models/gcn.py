@@ -1,0 +1,88 @@
+"""Dense bipartite graph convolution over the batch's corruption graph.
+
+Port of the JAX package's ``models/gcn.py``. The batch graph is the binary
+matrix ``G [B, n_item]`` with user -> item edges; GCNConv with self-loops
+and symmetric normalization on it reduces to two dense products:
+
+    deg_i     = 1 + sum_u G[u, i]
+    item_out  = (X_i W) / deg_i + G^T (X_u W) / sqrt(deg_i) + b
+    user_out  = (X_u W) + b
+
+so with the reference's directed edges user rows are graph-independent.
+``symmetric=True`` adds the reverse edges:
+
+    deg_u     = 1 + sum_i G[u, i]
+    user_out  = (X_u W) / deg_u + (G / sqrt(deg_u deg_i)) (X_i W) + b
+
+``mean_aggregation`` and ``mini_lightgcn_apply`` are not on any model's path
+and are not ported yet (ROADMAP.md §A item 5).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from gdmcf_torch.models.layers import gcn_conv_init
+
+
+def gcn_conv_bipartite(conv: nn.Linear, h_users: torch.Tensor,
+                       h_items: torch.Tensor, g: torch.Tensor,
+                       symmetric: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One GCNConv over the bipartite batch graph; returns (users, items).
+    h_users [B, D], h_items [N, D], g [B, N] binary."""
+    xu = F.linear(h_users, conv.weight)
+    xi = F.linear(h_items, conv.weight)
+    deg_i = 1.0 + g.sum(dim=0)
+    if not symmetric:
+        item_out = (xi / deg_i[:, None]
+                    + (g.T @ xu) / torch.sqrt(deg_i)[:, None])
+        user_out = xu
+    else:
+        deg_u = 1.0 + g.sum(dim=1)
+        norm_g = g * torch.rsqrt(deg_u)[:, None] * torch.rsqrt(deg_i)[None, :]
+        item_out = xi / deg_i[:, None] + norm_g.T @ xu
+        user_out = xu / deg_u[:, None] + norm_g @ xi
+    return user_out + conv.bias, item_out + conv.bias
+
+
+def _act(h: torch.Tensor) -> torch.Tensor:
+    # ReLU then LeakyReLU(0.1) back to back, as the reference does
+    return F.leaky_relu(F.relu(h), 0.1)
+
+
+class LayerGCN(nn.Module):
+    """One or two GCN convs (``conv1`` [+ ``conv2``])."""
+
+    def __init__(self, in_ch: int, hidden_ch: int, out_ch: int,
+                 num_layers: int, generator: torch.Generator, device=None):
+        super().__init__()
+        if num_layers not in (1, 2):
+            raise ValueError(f"LayerGCN takes 1 or 2 layers, not {num_layers}")
+        self.num_layers = num_layers
+        if num_layers == 1:
+            self.conv1 = gcn_conv_init(in_ch, out_ch, generator, device)
+        else:
+            self.conv1 = gcn_conv_init(in_ch, hidden_ch, generator, device)
+            self.conv2 = gcn_conv_init(hidden_ch, out_ch, generator, device)
+
+    def forward(self, h_users, h_items, g, symmetric: bool = False):
+        u, i = gcn_conv_bipartite(self.conv1, h_users, h_items, g, symmetric)
+        if self.num_layers == 2:
+            u, i = gcn_conv_bipartite(self.conv2, _act(u), _act(i), g,
+                                      symmetric)
+        return u, i
+
+
+def layer_gcn_user_rows(gcn: LayerGCN, h_users: torch.Tensor) -> torch.Tensor:
+    """The user rows of ``LayerGCN`` on the directed graph, which receive
+    only their self-loop: ``X_u W1 + b1`` [then ``act(.) W2 + b2``]. Equal
+    to ``gcn(...)[0]`` with ``symmetric=False`` without the item side."""
+    u = gcn.conv1(h_users)
+    if gcn.num_layers == 2:
+        u = gcn.conv2(_act(u))
+    return u

@@ -3,7 +3,8 @@
 Port of the JAX package's ``models/layers.py``. Linear layers are ``nn.Linear``
 (weight stored [out, in]; the JAX package stores [in, out]) initialized as
 the reference does: Xavier-normal weight, N(0, 0.001) bias. Embedding tables
-are Xavier-uniform. Every draw takes an explicit ``torch.Generator``.
+are Xavier-uniform; a GCN conv has a Glorot-uniform weight and a zero bias.
+Every draw takes an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -32,6 +33,18 @@ def xavier_uniform(shape, generator: torch.Generator,
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     out = torch.empty(shape, device=device)
     return out.uniform_(-limit, limit, generator=generator)
+
+
+def gcn_conv_init(d_in: int, d_out: int, generator: torch.Generator,
+                  device=None) -> nn.Linear:
+    """GCNConv's default init (torch_geometric): Glorot-uniform weight,
+    zero bias. Weight stored [out, in] like every ``nn.Linear``."""
+    layer = nn.Linear(d_in, d_out, device=device)
+    with torch.no_grad():
+        layer.weight.copy_(xavier_uniform((d_in, d_out), generator,
+                                          device).T)
+        layer.bias.zero_()
+    return layer
 
 
 def mlp_init(dims: Sequence[int], generator: torch.Generator,
@@ -63,12 +76,16 @@ def mlp_out(layers: nn.ModuleList, h: torch.Tensor,
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Inverted dropout (scale 1/(1-p) at train)."""
+            generator: Optional[torch.Generator] = None,
+            u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverted dropout (scale 1/(1-p) at train). ``u``: pre-drawn
+    uniforms of x's shape (keep where ``u < 1 - rate``, as JAX's
+    ``bernoulli``); otherwise they are drawn from ``generator``."""
     if not train or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < (1.0 - rate)
+    if u is None:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    keep = u.to(x.device) < (1.0 - rate)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -91,3 +108,66 @@ def l2_normalize(x: torch.Tensor, dim: int = -1,
     """Clamped-L2 normalization (torch.nn.functional.normalize)."""
     return x / torch.linalg.vector_norm(x, dim=dim,
                                         keepdim=True).clamp_min(eps)
+
+
+def cosine_scores(user_vecs: torch.Tensor, item_table: torch.Tensor,
+                  eps: float = 0.0) -> torch.Tensor:
+    """Full-catalog cosine similarity head: one [B, D] @ [D, N] product,
+    normalized. ``eps=0`` (the registry's choice under ``fidelity``) keeps
+    the reference's unguarded denominator, so a zero-norm vector gives NaN
+    scores; the corrected mode passes a small eps."""
+    u_norm = torch.linalg.vector_norm(user_vecs, dim=1, keepdim=True)
+    i_norm = torch.linalg.vector_norm(item_table, dim=1)
+    denom = u_norm * i_norm[None, :]
+    if eps:
+        denom = denom.clamp_min(eps)
+    return (user_vecs @ item_table.T) / denom
+
+
+# NT-Xent inner form: "softmax" materializes the normalized [B, B] matrix,
+# "lse" needs only the row logsumexp and the diagonal; the same math.
+# "auto" takes "lse" from a batch of _NT_XENT_LSE_MIN_BATCH rows on, as the
+# JAX package does. Tests set the form directly.
+_NT_XENT_IMPL = "auto"
+_NT_XENT_LSE_MIN_BATCH = 4096
+
+
+def _resolve_ntxent_impl(batch: int) -> str:
+    if _NT_XENT_IMPL != "auto":
+        return _NT_XENT_IMPL
+    return "lse" if batch >= _NT_XENT_LSE_MIN_BATCH else "softmax"
+
+
+def nt_xent_softmax_core(z1: torch.Tensor, z2: torch.Tensor,
+                         temperature: float = 0.1,
+                         eps: float = 1e-5) -> torch.Tensor:
+    """The softmax form of ``nt_xent_loss``."""
+    sim = (z1 @ z2.T) / temperature
+    p = torch.softmax(sim, dim=-1)
+    diag = torch.diagonal(p)
+    neg_sum = p.sum(dim=1) - diag
+    return -torch.log((diag + eps) / (neg_sum + eps)).mean()
+
+
+def nt_xent_loss(z1: torch.Tensor, z2: torch.Tensor, temperature: float = 0.1,
+                 eps: float = 1e-5) -> torch.Tensor:
+    """NT-Xent between the two tower latents. The reference's diagonal
+    masking is commented out, so the softmax runs over the full row
+    including the positive: loss = -log(diag / sum(off-diagonal)).
+
+    ALWAYS-ON REPAIR (both forms): eps also guards the denominator. The
+    reference guards only the numerator, so a positive that saturates the
+    softmax drives the off-diagonal mass to 0 and the loss to inf."""
+    impl = _resolve_ntxent_impl(z1.shape[0])
+    if impl == "lse":
+        # softmax rows sum to 1, so the off-diagonal mass is 1 - diag
+        sim = (z1 @ z2.T) / temperature
+        lse = torch.logsumexp(sim, dim=-1)
+        diag = torch.exp(torch.diagonal(sim) - lse)
+        neg_sum = 1.0 - diag
+        return -torch.log((diag + eps) / (neg_sum + eps)).mean()
+    if impl != "softmax":
+        raise NotImplementedError(
+            f"NT-Xent form {impl!r} is not ported (the 'remat' A/B form "
+            "waits: ROADMAP.md §A item 2)")
+    return nt_xent_softmax_core(z1, z2, temperature=temperature, eps=eps)

@@ -1,25 +1,23 @@
 """Backbone registry (port of the JAX package's ``models/registry.py``).
 
-This slice builds ``lightGCN``; every other backbone raises and names the
-ROADMAP.md item that ports it.
+Builds ``lightGCN`` and the flagship ``DNNOneHotEmbeddingGCN`` (and its
+``_conti`` variant); every other backbone raises and names the ROADMAP.md
+item that ports it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gdmcf_torch.models.backbones import DNNlightGCN
+from gdmcf_torch.models.backbones import DNNlightGCN, DNNOneHotEmbeddingGCN
 
 BACKBONES = (
     "DNN", "DNN_conti", "DNNCat", "DNNCat2", "DNNOneHot",
     "DNNOneHotTransformer", "DNNOneHotEmbedding", "DNNOneHotEmbedding_conti",
     "DNNOneHotEmbeddingGCN", "DNNOneHotEmbeddingGCN_conti", "lightGCN",
 )
-
-_ROADMAP_ITEM = {
-    "DNNOneHotEmbeddingGCN": "ROADMAP.md §A item 2 (flagship slice)",
-    "DNNOneHotEmbeddingGCN_conti": "ROADMAP.md §A item 2 (flagship slice)",
-}
+_FLAGSHIP = {"DNNOneHotEmbeddingGCN": False,
+             "DNNOneHotEmbeddingGCN_conti": True}
 
 
 def build_model(cfg, n_user: int, n_item: int, train_csr=None, *,
@@ -29,12 +27,21 @@ def build_model(cfg, n_user: int, n_item: int, train_csr=None, *,
     for moderate catalogs, the hybrid tile + COO operand once the dense N
     would exceed ``_DENSE_LIMIT_BYTES``."""
     b = cfg.backbone
+    in_dims, out_dims = cfg.in_dims(n_item), cfg.out_dims(n_item)
+    if b in _FLAGSHIP:
+        # the corrected mode guards the cosine head's denominator
+        return DNNOneHotEmbeddingGCN(
+            in_dims, out_dims, cfg.emb_size, n_item, n_user,
+            generator=generator, device=device, norm=cfg.norm,
+            dropout_rate=cfg.dropout, gcn_layer_num=cfg.gcnLayerNum,
+            noise_type=cfg.noise_type, symmetric_gcn=cfg.symmetric_gcn,
+            conti=_FLAGSHIP[b], cosine_eps=0.0 if cfg.fidelity else 1e-8)
     if b != "lightGCN":
         if b not in BACKBONES:
             raise ValueError(f"not implemented backbone: {b}")
         raise NotImplementedError(
-            f"backbone {b} is not ported yet: "
-            f"{_ROADMAP_ITEM.get(b, 'ROADMAP.md §A item 5 (other backbones)')}")
+            f"backbone {b} is not ported yet: ROADMAP.md §A item 5 (other "
+            "backbones)")
     norm_adj, sparse_adj = None, None
     if train_csr is not None:
         from gdmcf_torch.models import lightgcn as _lg
@@ -44,8 +51,7 @@ def build_model(cfg, n_user: int, n_item: int, train_csr=None, *,
         else:
             norm_adj = torch.from_numpy(
                 _lg.normalized_bipartite_blocks(train_csr))
-    return DNNlightGCN(cfg.in_dims(n_item), cfg.out_dims(n_item),
-                       cfg.emb_size, n_user, n_item, generator=generator,
-                       device=device, norm=cfg.norm,
+    return DNNlightGCN(in_dims, out_dims, cfg.emb_size, n_user, n_item,
+                       generator=generator, device=device, norm=cfg.norm,
                        dropout_rate=cfg.dropout, norm_adj=norm_adj,
                        sparse_adj=sparse_adj)

@@ -10,6 +10,13 @@ import numpy as np
 import torch
 
 
+def is_binary(a: np.ndarray) -> bool:
+    """True iff every cell is exactly 0 or 1: only such rows may be packed
+    (``pack_rows`` packs ``x != 0`` and would binarize counts)."""
+    a = np.asarray(a)
+    return bool(((a == 0) | (a == 1)).all())
+
+
 def pack_rows(x: np.ndarray) -> np.ndarray:
     """Binary [..., n] (any dtype) -> uint8 [..., ceil(n/8)]."""
     return np.packbits(np.asarray(x) != 0, axis=-1, bitorder="little")

@@ -4,11 +4,14 @@ Port of the JAX package's ``serve.py``: requests of any size are padded into
 ``serve_batch`` rows per dispatch; each dispatch ranks ``k_max`` items and
 any ``k <= k_max`` is a prefix of that ranking.
 
-    python -m gdmcf_torch.serve --backbone lightGCN --device cuda \\
-        -c configs/amazonOneEmbGcn.yaml --data_path ./Datasets/amazon-book_clean/
+    python -m gdmcf_torch.serve -c configs/amazonOneEmbGcn.yaml \\
+        --device cuda --data_path ./Datasets/amazon-book_clean/
 
-Without a checkpoint the recommender serves a fresh init (demo mode);
-loading checkpoints is not ported yet.
+serves the recipe's backbone (the flagship ``DNNOneHotEmbeddingGCN``;
+``--backbone lightGCN`` for the other). Without a checkpoint the
+recommender serves a fresh init (demo mode) or, from Python, a trained
+``Trainer`` (``build_recommender(..., trainer=t)``); loading checkpoints is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -105,17 +108,20 @@ class Recommender:
 
 def build_recommender(cfg, ckpt_dir, train_csr, n_user: int, n_item: int,
                       warmup: bool = True, device=None,
+                      trainer: Optional[Trainer] = None,
                       **kw) -> Recommender:
-    """Build the trainer and recommender (demo mode: fresh init) and warm
-    up. Checkpoint loading is not ported yet."""
+    """Build the recommender and warm up: over ``trainer`` (a trained
+    Trainer, its parameters as they are) or, without one, a new Trainer
+    (demo mode: fresh init). Checkpoint loading is not ported yet."""
     if ckpt_dir:
         raise NotImplementedError(
             "serving from a checkpoint is not ported yet (ROADMAP.md §A "
             "item 3); omit --ckpt_dir_serve for demo mode")
-    trainer = Trainer(cfg, n_user, n_item, train_csr=train_csr,
-                      device=device)
+    if trainer is None:
+        trainer = Trainer(cfg, n_user, n_item, train_csr=train_csr,
+                          device=device)
+        print("no checkpoint; serving from fresh init (demo mode)")
     rec = Recommender.from_state(trainer, None, train_csr, **kw)
-    print("no checkpoint; serving from fresh init (demo mode)")
     if warmup:
         rec.warmup()
     return rec

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA and Triton kernels against their plain versions, on the
+card.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA device.
 The file imports nothing of JAX, so on a machine with a card and no JAX it
@@ -6,8 +7,10 @@ runs without the suite's conftest:
 
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
 
-Tolerance rtol 1e-4 / atol 1e-5, TF32 off on the plain side: the kernels
-sum the same float32 terms in another order.
+SpMM tolerance rtol 1e-4 / atol 1e-5, TF32 off on the plain side: the
+kernels sum the same float32 terms in another order. AdamW tolerance:
+``fused_adamw.update_bounds`` (one ulp of a moment's storage type plus a
+few float32 ulps of its terms, from fused multiply-adds).
 """
 
 import numpy as np
@@ -17,6 +20,7 @@ import scipy.sparse as sp
 torch = pytest.importorskip("torch")
 
 from gdmcf_torch.models import lightgcn as TG  # noqa: E402
+from gdmcf_torch.ops import fused_adamw as TA  # noqa: E402
 from gdmcf_torch.ops import spmm as T  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -97,3 +101,59 @@ def test_cuda_operand_refuses_instead_of_falling_back(cuda):
     big = T.to_block_sparse(matrix(5, 300, 300, 0.05, 256, 128), 256, 128)
     with pytest.raises(ValueError, match="tiles of 256x128"):
         T.spmm(big.to(cuda), torch.ones(300, 8, device=cuda))
+
+
+@pytest.mark.parametrize("moment_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+@pytest.mark.parametrize("shape", [(), (1024,), (1000, 37), (65535,),
+                                   (65537,), (300, 513)])
+def test_adamw_kernel_matches_plain(cuda, shape, moment_dtype, wd):
+    """Three successive steps (count 1 to 3), each from the same inputs."""
+    gen = torch.Generator(cuda).manual_seed(0)
+    p = torch.randn(shape, generator=gen, device=cuda)
+    mu = torch.zeros(shape, dtype=moment_dtype, device=cuda)
+    nu = torch.zeros(shape, dtype=moment_dtype, device=cuda)
+    count = torch.zeros((), dtype=torch.int32, device=cuda)
+    for _ in range(3):
+        g = 0.1 * torch.randn(shape, generator=gen, device=cuda)
+        count = count + 1
+        c = TA.step_scalars(count, 1e-3)
+        want = TA.adamw_reference(p, g, mu, nu, c, wd=wd)
+        bounds = TA.update_bounds(p, g, mu, nu, c, wd=wd)
+        before = TA.LAUNCHES["fused_adamw"]
+        TA.adamw_update_(p, g, mu, nu, c, wd=wd)
+        torch.cuda.synchronize()
+        assert TA.LAUNCHES["fused_adamw"] == before + 1
+        for got, w, b, what in zip((p, mu, nu), want, bounds,
+                                   ("p", "mu", "nu")):
+            assert got.dtype == w.dtype
+            over = (got.float() - w.float()).abs() > b
+            assert not over.any(), f"{what}: {int(over.sum())} over bound"
+
+
+def test_adamw_cuda_tensor_refuses_instead_of_falling_back(cuda):
+    p = torch.zeros(64, 32, device=cuda)
+    good = dict(g=torch.zeros(64, 32, device=cuda),
+                mu=torch.zeros(64, 32, dtype=torch.bfloat16, device=cuda),
+                nu=torch.zeros(64, 32, dtype=torch.bfloat16, device=cuda),
+                c=TA.step_scalars(torch.ones((), dtype=torch.int32,
+                                             device=cuda), 1e-3))
+    bad = [
+        ("contiguous", dict(g=torch.zeros(32, 64, device=cuda).T)),
+        ("shape", dict(g=torch.zeros(64, 31, device=cuda))),
+        ("both float32 or both bfloat16",
+         dict(nu=torch.zeros(64, 32, device=cuda))),
+        ("both float32 or both bfloat16",
+         dict(mu=torch.zeros(64, 32, dtype=torch.float16, device=cuda),
+              nu=torch.zeros(64, 32, dtype=torch.float16, device=cuda))),
+        ("must be on", dict(c=good["c"].cpu())),
+        ("float32", dict(g=torch.zeros(64, 32, dtype=torch.float64,
+                                       device=cuda))),
+    ]
+    for match, change in bad:
+        args = dict(good, **change)
+        with pytest.raises(ValueError, match=match):
+            TA.adamw_update_(p, args["g"], args["mu"], args["nu"], args["c"])
+    with pytest.raises(ValueError, match="contiguous"):
+        TA.adamw_update_(torch.zeros(32, 64, device=cuda).T, good["g"],
+                         good["mu"], good["nu"], good["c"])

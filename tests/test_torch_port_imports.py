@@ -21,8 +21,9 @@ def test_port_imports_no_jax_and_no_reference_package():
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'gdmcf_tpu', 'optax', 'orbax')))\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'triton')"
+            " or m.startswith(('jax.', 'triton.', 'gdmcf_tpu', 'optax', "
+            "'orbax')))\n"
             "print(len(sys.modules)); assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -105,7 +106,7 @@ def test_other_backbones_name_their_roadmap_item():
     from gdmcf_torch.models.registry import build_model
 
     g = torch.Generator().manual_seed(0)
-    for b in ("DNNOneHotEmbeddingGCN", "DNN"):
+    for b in ("DNNOneHotEmbedding", "DNN"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             build_model(Config(backbone=b), 4, 5, generator=g, device="cpu")
     with pytest.raises(ValueError):
