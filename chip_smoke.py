@@ -6,23 +6,31 @@ check them.
     python3 chip_smoke.py --profile FILE   # also writes torch.profiler
                                            # tables of 5 lightGCN dispatches,
                                            # 5 flagship train steps and 5
-                                           # flagship dispatches
+                                           # flagship dispatches, and times
+                                           # the SpMM kernel at several
+                                           # segment lengths
 
 Phases (any failure exits non-zero):
-  1. build the CUDA kernels from gdmcf_torch/csrc/ and print the card;
-  2. SpMM kernel phase: every SpMM kernel against its plain PyTorch version
-     on the card (forward and transpose, br 8 and 128, empty row and column
-     tiles, duplicate COO entries, D 64, 50 and 100), rtol 1e-4 / atol
-     1e-5, TF32 off on the plain side;
+  1. build the CUDA kernel from gdmcf_torch/csrc/ and print the card;
+  2. SpMM kernel phase: the row-gather kernel against its plain PyTorch
+     version on the card, both directions, on tile operands at br 8 and
+     128 and on a hybrid operand (tiles and COO remainder), D 64, 50 and
+     100, with empty rows and columns, duplicate COO entries, x shorter
+     than the grid, and a dense row and column cut into several segments
+     (at ROW_SEGMENT and at 64); rtol 1e-4 / atol 1e-5, TF32 off on the
+     plain side; two launches must be bitwise equal;
   3. lightGCN path: the lightGCN backbone with the Amazon-Book recipe
      widths on a seeded power-law graph of the published Amazon-Book size
      (108,822 users x 94,949 items): build_recommender (demo mode; the
-     init-time propagation launches each SpMM kernel twice) and several
-     recommend() calls, checked for range, uniqueness, history exclusion
-     and determinism; the propagated tables are held against the plain
-     propagation on the card;
-  4. lightGCN timings (kernels, plain versions, torch.sparse.mm,
-     propagation, request p50); the recommender is then freed;
+     init-time propagation launches the kernel twice per direction) and
+     several recommend() calls, checked for range, uniqueness, history
+     exclusion and determinism; the host build of N timed in parts
+     (normalization, hybrid format, each row operand); the propagated
+     tables are held against the plain tile + COO propagation on the card;
+  4. lightGCN timings: the kernel, its plain version and torch.sparse.mm
+     on the whole hybrid N and on its tiles alone, propagation, request
+     p50 (with --profile also the kernel at several segment lengths); the
+     recommender is then freed;
   5. AdamW kernel phase: the Triton kernel against adamw_reference on the
      card (0-d, [1024], [1000, 37], 65,535 and 65,537 elements and
      [94,959, 1024]; bfloat16 and float32 moments; wd 0 and 0.01; three
@@ -105,51 +113,76 @@ def power_law_graph(seed: int):
 
 
 def kernel_phase(S, torch):
-    """Each kernel against the plain version on the card."""
+    """Phase 2: the kernel against its plain version on the card; returns
+    the largest |kernel - plain| per direction."""
     import scipy.sparse as sp
     rng = np.random.default_rng(0)
     n_rows, n_cols = 1000, 700           # x has fewer rows than the grid
     m = sp.random(n_rows, n_cols, density=0.03, random_state=1,
                   format="coo", dtype=np.float32)
-    keep = ~(((m.row >= 256) & (m.row < 384))      # empty row tiles
-             | ((m.col >= 256) & (m.col < 384)))   # an empty column tile
+    keep = ~(((m.row >= 256) & (m.row < 384))      # empty rows
+             | ((m.col >= 256) & (m.col < 384)))   # empty columns
     r, c, v = m.row[keep], m.col[keep], m.data[keep]
     dup = rng.integers(0, len(r), 64)              # duplicate COO entries
-    m = sp.coo_matrix((np.concatenate([v, v[dup]]),
-                       (np.concatenate([r, r[dup]]),
-                        np.concatenate([c, c[dup]]))), shape=(n_rows, n_cols))
+    # a dense row (row 0) and column (column 0): rows of several segments
+    # in A and in A^T
+    dr = np.setdiff1d(np.arange(n_rows), np.arange(256, 384))
+    dc = np.setdiff1d(np.arange(n_cols), np.arange(256, 384))
+    m = sp.coo_matrix(
+        (np.concatenate([v, v[dup], np.full(len(dr) + len(dc), 0.5,
+                                            np.float32)]),
+         (np.concatenate([r, r[dup], dr, np.zeros(len(dc), np.int64)]),
+          np.concatenate([c, c[dup], np.zeros(len(dr), np.int64), dc]))),
+        shape=(n_rows, n_cols))
     dense = m.toarray()
-    worst = {"spmm_csr_fwd": 0.0, "spmm_csc_t": 0.0}
-    for br in (8, 128):
-        a = S.to_block_sparse(m, br=br, bc=128).to("cuda")
-        for d in (64, 50, 100):
-            for transpose in (False, True):
-                name = "spmm_csc_t" if transpose else "spmm_csr_fwd"
-                n_x = n_rows if transpose else n_cols
-                x = torch.from_numpy(rng.standard_normal(
-                    (n_x, d)).astype(np.float32)).cuda()
-                y = S.spmm(a, x, transpose)
-                torch.cuda.synchronize()
-                y_plain = S.spmm_reference(a, x, transpose)
-                err = (y - y_plain).abs().max().item()
-                torch.testing.assert_close(y, y_plain, **TOL)
-                want = (dense.T if transpose else dense) @ x.cpu().numpy()
-                n_out = want.shape[0]
-                np.testing.assert_allclose(y[:n_out].cpu().numpy(), want,
-                                           rtol=1e-4, atol=1e-4)
-                assert not y[n_out:].any(), "pad rows must be zero"
-                empty = y[256:384]                  # empty row/column tile
-                assert not empty.any(), f"{name}: empty tile not zero"
-                worst[name] = max(worst[name], err)
-                log(f"kernel {name} br={br} d={d}: max|kernel-plain| "
-                    f"{err:.3e} (rtol {TOL['rtol']}, atol {TOL['atol']})")
+    worst = {"spmm_rows_fwd": 0.0, "spmm_rows_t": 0.0}
+    for label, fmt in (("tiles br=8", S.to_block_sparse(m, br=8, bc=128)),
+                       ("tiles br=128", S.to_block_sparse(m, br=128,
+                                                          bc=128)),
+                       ("hybrid", S.to_hybrid(m, br=8, bc=128,
+                                              min_fill=32))):
+        assert label != "hybrid" or fmt.rem_vals.numel() > 1_000
+        fmt = fmt.to("cuda")
+        tpu_plain = (S.hybrid_spmm_reference if label == "hybrid"
+                     else S.spmm_reference)
+        for transpose in (False, True):
+            name = "spmm_rows_t" if transpose else "spmm_rows_fwd"
+            full = fmt.t_rows if transpose else fmt.fwd_rows
+            for op in (full, full.resegment(64)):
+                assert op.n_part > 0, "no row was cut into segments"
+                for d in (64, 50, 100):
+                    n_x = n_rows if transpose else n_cols
+                    x = torch.from_numpy(rng.standard_normal(
+                        (n_x, d)).astype(np.float32)).cuda()
+                    y = S.spmm_rows(op, x)
+                    again = S.spmm_rows(op, x)
+                    torch.cuda.synchronize()
+                    assert torch.equal(y, again), f"{name}: launches differ"
+                    y_plain = S.spmm_rows_reference(op, x)
+                    err = (y - y_plain).abs().max().item()
+                    torch.testing.assert_close(y, y_plain, **TOL)
+                    torch.testing.assert_close(y, tpu_plain(fmt, x, transpose),
+                                               **TOL)
+                    want = (dense.T if transpose else dense) @ x.cpu().numpy()
+                    n_out = want.shape[0]
+                    np.testing.assert_allclose(y[:n_out].cpu().numpy(), want,
+                                               rtol=1e-4, atol=1e-4)
+                    assert not y[n_out:].any(), "pad rows must be zero"
+                    assert not y[256:384].any(), f"{name}: empty row not zero"
+                    worst[name] = max(worst[name], err)
+                    seg_len = S.ROW_SEGMENT if op is full else 64
+                    log(f"kernel {name} {label} segments of {seg_len} "
+                        f"({op.n_seg} segments, {op.n_part} in split rows) "
+                        f"d={d}: max|kernel-plain| {err:.3e} (rtol "
+                        f"{TOL['rtol']}, atol {TOL['atol']}); two launches "
+                        f"bitwise equal")
     return worst
 
 
 def bytes_and_flops(a, d, transpose):
-    """What one product needs: tiles + the x rows its tiles touch +
-    output, read or written once; 2 flops per stored nonzero per column
-    (a zero tile entry needs no work)."""
+    """The earlier tile-format design's bound, kept for history: tiles +
+    the x rows its tiles touch + output, read or written once; 2 flops per
+    stored nonzero per column."""
     nb = a.n_blocks
     if transpose:
         x_tiles = a.block_rows[:nb].unique().numel()
@@ -165,16 +198,16 @@ def bytes_and_flops(a, d, transpose):
     return nbytes, 2 * nnz * d
 
 
-def nnz_bytes(a, d, transpose):
-    """A bound free of the tile format: each stored nonzero's value and
-    (row, column) index, the x rows the nonzeros touch and the output,
-    each read or written once."""
-    k, i, j = a.blocks[: a.n_blocks].nonzero(as_tuple=True)
-    rows = a.block_rows_csr[k].long() * a.br + i
-    cols = a.block_cols[k].long() * a.bc + j
-    x_rows = (rows if transpose else cols).unique().numel()
-    out_rows = a.shape[1] if transpose else a.shape[0]
-    return k.numel() * 12 + (x_rows + out_rows) * d * 4
+def nnz_bytes(op, d):
+    """The nonzero-only bound's bytes, each read or written once: each
+    nonzero's value and column (8 B; the CSR implies its row), the segment
+    arrays the kernel reads (seg_ptr, seg_row and seg_part, and two
+    row_seg_ptr entries per row of several segments), the x rows the
+    nonzeros touch and the output."""
+    x_rows = op.cols.unique().numel()
+    split_rows = op.seg_row[op.seg_part >= 0].unique().numel()
+    meta = 4 * (op.n_seg + 1) + 8 * op.n_seg + 8 * split_rows
+    return op.nnz * 8 + meta + (x_rows + op.n_out) * d * 4
 
 
 def tpu_kernel_line(root: str, name: str, module: str = "spmm.py") -> str:
@@ -192,22 +225,14 @@ def tpu_kernel_line(root: str, name: str, module: str = "spmm.py") -> str:
     raise FileNotFoundError(f"no Pallas kernel {name} in {root}")
 
 
-def library_operand(a, torch, transpose, n_x):
-    """The tile part of N as a torch sparse CSR (or its transpose) with
-    n_x columns, for torch.sparse.mm against x [n_x, D]."""
+def library_operand(op, torch, n_x):
+    """The operand's nonzeros as a torch sparse CSR [n_out, n_x], for
+    torch.sparse.mm against x [n_x, D]."""
     import warnings
-    k, i, j = a.blocks[: a.n_blocks].nonzero(as_tuple=True)
-    rows = a.block_rows_csr[k].long() * a.br + i
-    cols = a.block_cols[k].long() * a.bc + j
-    vals = a.blocks[k, i, j]
-    if transpose:
-        rows, cols = cols, rows
-    shape = (a.shape[1] if transpose else a.shape[0], n_x)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")   # "sparse CSR support is in beta"
-        coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, shape,
-                                      check_invariants=True)
-        return coo.coalesce().to_sparse_csr()
+        return torch.sparse_csr_tensor(op.row_ptr, op.cols, op.vals,
+                                       (op.n_out, n_x))
 
 
 def flagship_matmul_flops(cfg, n_item: int, batch: int, train: bool):
@@ -287,6 +312,8 @@ def write_profile(path: str, card: str, title: str, fn, torch, mode="w"):
 def serve_lightgcn(args, root, card, torch, errors):
     """Phases 3-4: the lightGCN serving path and the SpMM timings; returns
     the SpMM kernel entries of the kernels line."""
+    import scipy.sparse as sp
+
     from gdmcf_torch.config import load_config
     from gdmcf_torch.models import lightgcn as lg
     from gdmcf_torch.models.backbones import DNNlightGCN
@@ -319,14 +346,41 @@ def serve_lightgcn(args, root, card, torch, errors):
     users_b = check_requests(rec, csr, N_ITEM, "lightGCN")
     launches = dict(S.LAUNCHES)
     assert launches == init_launches, "requests must launch no SpMM kernel"
-    for name in ("spmm_csr_fwd", "spmm_csc_t"):
-        assert launches[name] > 0, f"{name} was not launched on the path"
+    assert launches == {"spmm_rows_fwd": 2, "spmm_rows_t": 2}, \
+        "start-up must launch the kernel twice per direction"
 
-    # the propagated tables against the plain propagation on the card
+    # start-up's host build of N, in parts (build_recommender runs the
+    # normalization and to_hybrid with these defaults)
+    t0 = time.perf_counter()
+    n, _ = lg._normalized_sparse_n(csr, 1e-9, False)
+    norm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    h = S.to_hybrid(n)
+    hybrid_s = time.perf_counter() - t0
+    coo = n.tocoo()
+    t0 = time.perf_counter()
+    padded = sp.csr_matrix((coo.data, (coo.row, coo.col)),
+                           shape=h.tiles.shape)
+    csr_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    S.row_operand(padded, False)
+    fwd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    S.row_operand(padded.T.tocsr(), True)
+    t_s = time.perf_counter() - t0
+    log(f"host build of N: normalization {norm_s:.3f} s, to_hybrid "
+        f"{hybrid_s:.3f} s = padded CSR {csr_s:.3f} s + forward operand "
+        f"{fwd_s:.3f} s + transpose operand {t_s:.3f} s + tiles and the "
+        f"rest {hybrid_s - csr_s - fwd_s - t_s:.3f} s; the rest of "
+        f"build_recommender (model init, propagation, warm-up) "
+        f"{build_s - norm_s - hybrid_s:.3f} s")
+    del coo, padded
+
+    # the propagated tables against the plain tile + COO propagation
     model = rec.trainer.model
     g = torch.Generator("cuda").manual_seed(cfg.random_seed)
     raw_u, raw_i = DNNlightGCN.draw_lgn_table(N_USER, N_ITEM, 64, g, "cuda")
-    h = lg.normalized_bipartite_hybrid(csr).to("cuda")
+    h = h.to("cuda")
     with matmul_precision(tf32=False):
         pu, pi = lg._layers(
             raw_u, raw_i, 2,
@@ -340,57 +394,79 @@ def serve_lightgcn(args, root, card, torch, errors):
                                atol=1e-6)
     assert torch.isfinite(model.frozen_lgn_user).all()
     a = h.tiles
-    tile_nnz = int((a.blocks[: a.n_blocks] != 0).sum())
-    log(f"propagation vs plain: max abs err {prop_err:.3e}; tiles "
-        f"{a.n_blocks} ({a.br}x{a.bc}), tile nnz {tile_nnz}, COO remainder "
-        f"{h.rem_vals.numel()}, max row width {a.max_row_width}, max column "
-        f"width {a.max_col_width}")
+    log(f"propagation vs plain tile + COO: max abs err {prop_err:.3e}; "
+        f"whole N {h.fwd_rows.nnz} nonzeros = tiles {a.fwd_rows.nnz} in "
+        f"{a.n_blocks} tiles ({a.br}x{a.bc}) + COO remainder "
+        f"{h.rem_vals.numel()}; segments of {S.ROW_SEGMENT}: forward "
+        f"{h.fwd_rows.n_seg} ({h.fwd_rows.n_part} in split rows), "
+        f"transpose {h.t_rows.n_seg} ({h.t_rows.n_part} in split rows); "
+        f"longest row {int((h.fwd_rows.row_ptr[1:] - h.fwd_rows.row_ptr[:-1]).max())}"
+        f", longest column "
+        f"{int((h.t_rows.row_ptr[1:] - h.t_rows.row_ptr[:-1]).max())}")
 
-    # 4. timings
+    # 4. timings: operand (a) the whole hybrid N, (b) its tiles alone
     prop_ms = cuda_ms(lambda: lg.propagate_hybrid(raw_u, raw_i, h, 2),
                       iters=5, warmup=1)
-    log(f"propagation (2 layers x 2 directions, kernels + COO): "
+    log(f"propagation (2 layers x 2 directions, one launch per product): "
         f"{prop_ms:.3f} ms [{card}]")
     kernels = []
-    for name, transpose, x in (("spmm_csr_fwd", False, raw_i),
-                               ("spmm_csc_t", True, raw_u)):
-        ms = cuda_ms(lambda: S.spmm(a, x, transpose))
-        with matmul_precision(tf32=False):
-            plain_ms = cuda_ms(lambda: S.spmm_reference(a, x, transpose),
+    for name, transpose, x in (("spmm_rows_fwd", False, raw_i),
+                               ("spmm_rows_t", True, raw_u)):
+        d = x.shape[1]
+        res = {}
+        for label, op, call in (
+                ("hybrid N", h.t_rows if transpose else h.fwd_rows,
+                 lambda: S.hybrid_spmm(h, x, transpose)),
+                ("tiles only", a.t_rows if transpose else a.fwd_rows,
+                 lambda: S.spmm(a, x, transpose))):
+            ms = cuda_ms(call)
+            plain_ms = cuda_ms(lambda: S.spmm_rows_reference(op, x),
                                iters=5, warmup=1)
-        lib = library_operand(a, torch, transpose, x.shape[0])
-        lib_ms = cuda_ms(lambda: torch.sparse.mm(lib, x))
-        rr, rc = (h.rem_cols, h.rem_rows) if transpose else (h.rem_rows,
-                                                            h.rem_cols)
-        n_out = a.shape[1] if transpose else a.shape[0]
-        coo_ms = cuda_ms(lambda: x.new_zeros((n_out, x.shape[1])).index_add_(
-            0, rr, h.rem_vals[:, None] * x[rc]))
-        nbytes, flops = bytes_and_flops(a, x.shape[1], transpose)
-        nnz_bound = nnz_bytes(a, x.shape[1], transpose) / HBM_BYTES_PER_S * 1e3
-        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ops = flops / F32_FLOP_PER_S * 1e3
+            lib = library_operand(op, torch, x.shape[0])
+            torch.testing.assert_close(torch.sparse.mm(lib, x), call(),
+                                       **TOL)
+            lib_ms = cuda_ms(lambda: torch.sparse.mm(lib, x))
+            bound_bytes = nnz_bytes(op, d) / HBM_BYTES_PER_S * 1e3
+            bound_ops = 2 * op.nnz * d / F32_FLOP_PER_S * 1e3
+            res[label] = {
+                "nnz": op.nnz, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(bound_bytes, bound_ops),
+                "bound_by": ("bytes" if bound_bytes >= bound_ops
+                             else "operations"),
+                "library_ms": lib_ms}
+            log(f"{name} on {label} ({op.nnz} nonzeros): {ms:.4f} ms/launch, "
+                f"plain {plain_ms:.4f} ms, torch.sparse.mm {lib_ms:.4f} ms, "
+                f"nonzero-only bound {res[label]['bound_ms']:.4f} ms "
+                f"({res[label]['bound_by']}), gathers "
+                f"{op.nnz * d * 4 / ms / 1e9:.1f} TB/s of x rows [{card}]")
+        nbytes, flops = bytes_and_flops(a, d, transpose)
+        log(f"{name}: the earlier design's tile-format bound on the tiles "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} B, {flops} "
+            f"flop)")
         kernels.append({
             "name": name, "route": "cuda",
             "source": "gdmcf_torch/csrc/spmm.cu",
             # the TPU takes K2 for both directions at this size (x is over
-            # its 6 MiB VMEM budget); K3/K4 are the same products
+            # its 6 MiB VMEM budget); K3/K4 are the same products, and the
+            # COO remainder pass is folded in
             "replaces": tpu_kernel_line(root, "_spmm_kernel"),
             "launches": launches[name],
             "max_abs_err": errors[name],
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bound_bytes, bound_ops),
-            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-            "library_ms": lib_ms,
+            **{k: v for k, v in res["hybrid N"].items() if k != "nnz"},
+            "operand": f"hybrid N, {res['hybrid N']['nnz']} nonzeros",
+            "tiles_only": res["tiles only"],
         })
-        # a transpose call whose column tiles span several CSC segments
-        # also launches spmm_csc_t_reduce; its time is inside ``ms``
-        device_launches = 1 + int(transpose
-                                  and a.n_segments > a.shape[1] // a.bc)
-        log(f"{name}: {ms:.4f} ms/call ({device_launches} device launches), "
-            f"plain {plain_ms:.4f} ms, torch.sparse.mm {lib_ms:.4f} ms, COO "
-            f"remainder {coo_ms:.4f} ms, tile-format bound "
-            f"{kernels[-1]['bound_ms']:.4f} ms ({nbytes} B, {flops} flop), "
-            f"nonzero-only bound {nnz_bound:.4f} ms [{card}]")
+
+    if args.profile:
+        # ROW_SEGMENT: the kernel on the whole N at several segment lengths
+        for seg_len in (32, 64, 128, 256, 512, 1024, 4096, 1 << 20):
+            ops = [(h.fwd_rows.resegment(seg_len), raw_i),
+                   (h.t_rows.resegment(seg_len), raw_u)]
+            times = [cuda_ms(lambda: S.spmm_rows(op, x)) for op, x in ops]
+            log(f"seg_len {seg_len}: spmm_rows_fwd {times[0]:.4f} ms "
+                f"({ops[0][0].n_seg} segments), spmm_rows_t "
+                f"{times[1]:.4f} ms ({ops[1][0].n_seg} segments) [{card}]")
+            del ops
 
     users = users_b[:256]
     excl = request_times(rec, users, card, "lightGCN")
@@ -614,7 +690,8 @@ def main() -> int:
     parser.add_argument("--profile", metavar="FILE", default=None,
                         help="write torch.profiler tables of 5 lightGCN "
                              "dispatches, 5 flagship train steps and 5 "
-                             "flagship dispatches")
+                             "flagship dispatches, and time the SpMM kernel "
+                             "at several segment lengths")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():

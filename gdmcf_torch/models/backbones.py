@@ -40,8 +40,8 @@ class DNNlightGCN(nn.Module):
     buffers, and the filter is ``(e_user[index] @ e_item.T) > 0``.
 
     ``norm_adj``: dense normalized N (a [n_user, n_item] tensor);
-    ``sparse_adj``: a BlockSparse or HybridSparse N, propagated with the
-    SpMM kernels on CUDA. Neither: the raw init tables are used.
+    ``sparse_adj``: a BlockSparse or HybridSparse N, propagated on its row
+    operands alone (the SpMM kernel on CUDA). Neither: the raw init tables are used.
     """
 
     def __init__(self, in_dims, out_dims, emb_size: int, n_user: int,
@@ -59,13 +59,11 @@ class DNNlightGCN(nn.Module):
         e_user, e_item = self.draw_lgn_table(n_user, n_item, lgn_dim,
                                              generator, device)
         if sparse_adj is not None:
-            from gdmcf_torch.models.lightgcn import (propagate_hybrid,
-                                                     propagate_sparse)
-            from gdmcf_torch.ops.spmm import HybridSparse
-            op = sparse_adj.to(e_user.device)
-            prop = (propagate_hybrid if isinstance(op, HybridSparse)
-                    else propagate_sparse)
-            e_user, e_item = prop(e_user, e_item, op, lgn_layers)
+            from gdmcf_torch.models.lightgcn import propagate_rows
+            dev = e_user.device
+            e_user, e_item = propagate_rows(
+                e_user, e_item, sparse_adj.fwd_rows.to(dev),
+                sparse_adj.t_rows.to(dev), lgn_layers)
         elif norm_adj is not None:
             from gdmcf_torch.models.lightgcn import propagate
             e_user, e_item = propagate(e_user, e_item,

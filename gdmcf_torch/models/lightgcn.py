@@ -3,9 +3,10 @@
 Port of the propagation half of the JAX package's ``models/lightgcn.py``: with
 R the user x item interactions, N = D_u^{-1/2} R D_i^{-1/2}, one layer is
 ``u' = N @ e_item, i' = N^T @ e_user``, and the final tables are the mean
-over layers 0..K. The sparse forms run on ``ops/spmm`` (the CUDA kernels for
-CUDA tensors); the transpose direction reuses the same tile storage.
-Pretraining and ``bpr_loss`` are not ported yet.
+over layers 0..K. The sparse forms run on ``ops/spmm`` (the CUDA kernel for
+CUDA tensors, one launch per product): each operand carries a row operand
+per direction, the CSR of N and that of N^T, so both directions are the
+same row gather. Pretraining and ``bpr_loss`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,8 +17,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from gdmcf_torch.ops.spmm import (BlockSparse, HybridSparse,
-                                  degree_sort_permutation, hybrid_spmm, spmm,
+from gdmcf_torch.ops.spmm import (BlockSparse, HybridSparse, RowOperand,
+                                  degree_sort_permutation, spmm_rows,
                                   to_block_sparse, to_hybrid)
 
 # a dense [n_user, n_item] f32 N above this many bytes switches the
@@ -60,7 +61,7 @@ def normalized_bipartite_sparse(train_csr: sp.spmatrix, br: int = 128,
                                 bc: int = 128, eps: float = 1e-9,
                                 max_bytes: int = 8 << 30,
                                 degree_sort: bool = False):
-    """N as ONE BlockSparse (its CSC view serves N^T); with
+    """N as ONE BlockSparse (its ``t_rows`` serve N^T); with
     ``degree_sort`` also returns (row_perm, col_perm)."""
     n, perms = _normalized_sparse_n(train_csr, eps, degree_sort)
     n_bs = to_block_sparse(n, br, bc, max_bytes)
@@ -71,7 +72,8 @@ def normalized_bipartite_hybrid(train_csr: sp.spmatrix, br: int = 8,
                                 bc: int = 128, min_fill: int = 4,
                                 eps: float = 1e-9, max_bytes: int = 8 << 30,
                                 degree_sort: bool = False):
-    """N as a HybridSparse (tiles + COO remainder)."""
+    """N as a HybridSparse (tiles + COO remainder, and the row operands
+    over all of its nonzeros that the products run on)."""
     n, perms = _normalized_sparse_n(train_csr, eps, degree_sort)
     h = to_hybrid(n, br=br, bc=bc, min_fill=min_fill, max_bytes=max_bytes)
     return (h, perms) if degree_sort else h
@@ -96,19 +98,25 @@ def propagate(e_user: torch.Tensor, e_item: torch.Tensor,
                    lambda u: n_mat.T @ u)
 
 
+def propagate_rows(e_user: torch.Tensor, e_item: torch.Tensor,
+                   fwd: RowOperand, t: RowOperand, n_layers: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``propagate`` on the row operands of N and N^T alone (either
+    format's ``fwd_rows`` and ``t_rows``), so the tiles need not be on the
+    device."""
+    return _layers(e_user, e_item, n_layers, lambda i: spmm_rows(fwd, i),
+                   lambda u: spmm_rows(t, u))
+
+
 def propagate_sparse(e_user: torch.Tensor, e_item: torch.Tensor,
                      a: BlockSparse, n_layers: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``propagate`` on the block-sparse N."""
-    return _layers(e_user, e_item, n_layers,
-                   lambda i: spmm(a, i, transpose=False),
-                   lambda u: spmm(a, u, transpose=True))
+    """``propagate`` on the block-sparse N (its tiles' nonzeros)."""
+    return propagate_rows(e_user, e_item, a.fwd_rows, a.t_rows, n_layers)
 
 
 def propagate_hybrid(e_user: torch.Tensor, e_item: torch.Tensor,
                      h: HybridSparse, n_layers: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``propagate`` on the hybrid N."""
-    return _layers(e_user, e_item, n_layers,
-                   lambda i: hybrid_spmm(h, i, False),
-                   lambda u: hybrid_spmm(h, u, True))
+    """``propagate`` on the hybrid N: one launch per product on CUDA."""
+    return propagate_rows(e_user, e_item, h.fwd_rows, h.t_rows, n_layers)

@@ -8,7 +8,7 @@ runs without the suite's conftest:
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
 
 SpMM tolerance rtol 1e-4 / atol 1e-5, TF32 off on the plain side: the
-kernels sum the same float32 terms in another order. AdamW tolerance:
+kernel sums the same float32 terms in another order. AdamW tolerance:
 ``fused_adamw.update_bounds`` (one ulp of a moment's storage type plus a
 few float32 ulps of its terms, from fused multiply-adds).
 """
@@ -38,7 +38,9 @@ def cuda():
 
 
 def matrix(seed, n_rows, n_cols, density, br, bc):
-    """COO with an empty row tile, an empty column tile and duplicates."""
+    """COO with an empty row tile, an empty column tile, duplicates, and a
+    dense row and column (rows of several ROW_SEGMENT segments in A and
+    A^T)."""
     m = sp.random(n_rows, n_cols, density=density,
                   random_state=np.random.RandomState(seed), format="coo",
                   dtype=np.float32)
@@ -46,30 +48,65 @@ def matrix(seed, n_rows, n_cols, density, br, bc):
              | ((m.col >= bc) & (m.col < 2 * bc)))
     r, c, v = m.row[keep], m.col[keep], m.data[keep]
     dup = np.random.default_rng(seed).integers(0, len(r), 32)
-    return sp.coo_matrix((np.concatenate([v, v[dup]]),
-                          (np.concatenate([r, r[dup]]),
-                           np.concatenate([c, c[dup]]))),
-                         shape=(n_rows, n_cols))
+    # the dense row and column miss the empty tiles
+    dr = np.setdiff1d(np.arange(n_rows), np.arange(br, 2 * br))
+    dc = np.setdiff1d(np.arange(n_cols), np.arange(bc, 2 * bc))
+    half = np.full(len(dr) + len(dc), 0.5, np.float32)
+    return sp.coo_matrix(
+        (np.concatenate([v, v[dup], half]),
+         (np.concatenate([r, r[dup], dr, np.full(len(dc), 2 * br + 1)]),
+          np.concatenate([c, c[dup], np.full(len(dr), 2 * bc + 3), dc]))),
+        shape=(n_rows, n_cols))
+
+
+def rand_x(seed, n, d, cuda):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (n, d)).astype(np.float32)).to(cuda)
+
+
+def name_of(transpose):
+    return "spmm_rows_t" if transpose else "spmm_rows_fwd"
 
 
 @pytest.mark.parametrize("transpose", [False, True])
 @pytest.mark.parametrize("br,bc,d", [(8, 128, 64), (128, 128, 50),
                                      (16, 8, 100), (8, 16, 24)])
 def test_kernel_matches_plain(cuda, br, bc, d, transpose):
-    # 1000 rows at br 8 put 125 tiles in a column tile: two CSC segments
     m = matrix(1, 1000, 700, 0.03, br, bc)
     a = T.to_block_sparse(m, br, bc).to(cuda)
+    op = a.t_rows if transpose else a.fwd_rows
+    assert op.n_part > 0, "no row cut into several segments"
     n_x = 1000 if transpose else 700
-    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
-        (n_x - 3, d)).astype(np.float32)).to(cuda)   # x shorter than grid
-    name = "spmm_csc_t" if transpose else "spmm_csr_fwd"
-    before = T.LAUNCHES[name]
+    x = rand_x(2, n_x - 3, d, cuda)            # x shorter than the grid
+    before = T.LAUNCHES[name_of(transpose)]
     y = T.spmm(a, x, transpose)
     torch.cuda.synchronize()
-    assert T.LAUNCHES[name] == before + 1
+    assert T.LAUNCHES[name_of(transpose)] == before + 1
+    torch.testing.assert_close(y, T.spmm_rows_reference(op, x), **TOL)
     torch.testing.assert_close(y, T.spmm_reference(a, x, transpose), **TOL)
     empty = slice(bc, 2 * bc) if transpose else slice(br, 2 * br)
     assert not y[empty].any(), "an empty tile must give zeros"
+    n_out = 700 if transpose else 1000
+    assert not y[n_out:].any(), "pad rows must be zero"
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("seg_len", [1, 7, 4096])
+def test_kernel_segments_and_determinism(cuda, seg_len, transpose):
+    """Any cut of the rows gives the plain sum; two launches on the same
+    inputs are bitwise equal."""
+    h = T.to_hybrid(matrix(3, 600, 900, 0.02, 8, 128), br=8, bc=128,
+                    min_fill=24)
+    assert h.rem_vals.numel() > 1000
+    op = (h.t_rows if transpose else h.fwd_rows).resegment(seg_len).to(cuda)
+    x = rand_x(4, 600 if transpose else 900, 64, cuda)
+    y = T.spmm_rows(op, x)
+    again = T.spmm_rows(op, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again), "two launches differ"
+    torch.testing.assert_close(y, T.spmm_rows_reference(op, x), **TOL)
+    torch.testing.assert_close(
+        y, T.hybrid_spmm_reference(h.to(cuda), x, transpose), **TOL)
 
 
 def test_hybrid_propagation_matches_plain(cuda):
@@ -85,7 +122,7 @@ def test_hybrid_propagation_matches_plain(cuda):
         np.float32)).to(cuda)
     T.reset_launch_counts()
     u, i = TG.propagate_hybrid(u0, i0, h, 2)
-    assert T.LAUNCHES == {"spmm_csr_fwd": 2, "spmm_csc_t": 2}
+    assert T.LAUNCHES == {"spmm_rows_fwd": 2, "spmm_rows_t": 2}
     up, ip = TG._layers(u0, i0, 2,
                         lambda x: T.hybrid_spmm_reference(h, x, False),
                         lambda x: T.hybrid_spmm_reference(h, x, True))
@@ -94,13 +131,18 @@ def test_hybrid_propagation_matches_plain(cuda):
 
 
 def test_cuda_operand_refuses_instead_of_falling_back(cuda):
-    a = T.to_block_sparse(matrix(4, 64, 64, 0.1, 8, 16), 8, 16).to(cuda)
-    a.blocks = a.blocks.double()
-    with pytest.raises(ValueError, match="blocks"):
-        T.spmm(a, torch.ones(64, 8, device=cuda))
-    big = T.to_block_sparse(matrix(5, 300, 300, 0.05, 256, 128), 256, 128)
-    with pytest.raises(ValueError, match="tiles of 256x128"):
-        T.spmm(big.to(cuda), torch.ones(300, 8, device=cuda))
+    a = T.to_block_sparse(matrix(4, 64, 64, 0.1, 8, 16), 8, 16)
+    x = torch.ones(64, 8, device=cuda)
+    with pytest.raises(ValueError, match="operand on cpu"):
+        T.spmm(a, x)
+    with pytest.raises(ValueError, match="x on cpu"):
+        T.spmm(a.to(cuda), x.cpu())
+    a = a.to(cuda)
+    with pytest.raises(ValueError, match=r"x must be \[n, D\]"):
+        T.spmm_rows(a.fwd_rows, torch.ones(64, device=cuda))
+    a.fwd_rows.vals = a.fwd_rows.vals.double()
+    with pytest.raises(ValueError, match="vals"):
+        T.spmm(a, x)
 
 
 @pytest.mark.parametrize("moment_dtype", [torch.bfloat16, torch.float32])

@@ -83,18 +83,20 @@ def test_bridge_names_and_roundtrip(pair):
 
 def test_port_used_the_hybrid_operand():
     """The fixture's port model was built with the hybrid operand: its own
-    propagation (before the bridge overwrote the tables) ran through
-    ``hybrid_spmm``."""
+    propagation (before the bridge overwrote the tables) ran on the
+    hybrid's row operands, which hold every nonzero of N."""
     train = interactions()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(TG, "_DENSE_LIMIT_BYTES", 0)
         calls = []
-        real = TG.hybrid_spmm
-        mp.setattr(TG, "hybrid_spmm",
-                   lambda *a, **k: calls.append(1) or real(*a, **k))
+        real = TG.spmm_rows
+        mp.setattr(TG, "spmm_rows",
+                   lambda op, x: calls.append(op) or real(op, x))
         TTrainer(TConfig(device="cpu", **RECIPE), N_USER, N_ITEM,
                  train_csr=train)
-    assert len(calls) == 4   # 2 layers x 2 directions
+    # 2 layers x 2 directions
+    assert [op.transpose for op in calls] == [False, True] * 2
+    assert all(op.nnz == train.nnz for op in calls)
 
 
 @pytest.mark.parametrize("exclude", [True, False])
@@ -166,4 +168,4 @@ def test_no_cuda_kernel_ran_on_the_cpu_path(pair):
     _, trec, _, _ = pair
     TS.reset_launch_counts()
     trec.recommend([0, 1], k=5)
-    assert TS.LAUNCHES == {"spmm_csr_fwd": 0, "spmm_csc_t": 0}
+    assert TS.LAUNCHES == {"spmm_rows_fwd": 0, "spmm_rows_t": 0}

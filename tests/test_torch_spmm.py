@@ -1,6 +1,7 @@
 """Block-sparse SpMM in the port against the JAX package: host builders,
-plain forward/transpose products and the hybrid format. The CUDA kernels
-against their plain versions are in ``test_torch_kernels_gpu.py``.
+plain forward/transpose products and the hybrid format. The row operand the
+CUDA kernel walks is in ``test_torch_spmm_rows.py``, the kernel against its
+plain version in ``test_torch_kernels_gpu.py``.
 
 Inputs are made from a seed with numpy and fed to both. Products are held
 to rtol 1e-5 / atol 1e-6 against the JAX oracle and against a float64
@@ -91,20 +92,6 @@ def test_empty_matrix_format():
     assert_same_format(ja, ta)
     y = T.spmm(ta, torch.ones(30, 4))
     assert y.shape == (24, 4) and not y.any()
-
-
-@pytest.mark.parametrize("seg_len", [1, 3, 64])
-def test_csc_segments_cover_each_column_range(seg_len):
-    col_ptr = np.array([0, 0, 5, 6, 6, 140], np.int32)
-    tile, start, ptr = T.csc_segments(col_ptr, seg_len)
-    assert len(ptr) == len(col_ptr)
-    for ct in range(len(col_ptr) - 1):
-        segs = range(ptr[ct], ptr[ct + 1])
-        assert len(segs) >= 1 and all(tile[s] == ct for s in segs)
-        covered = [k for s in segs
-                   for k in range(start[s], min(start[s] + seg_len,
-                                                col_ptr[ct + 1]))]
-        assert covered == list(range(col_ptr[ct], col_ptr[ct + 1]))
 
 
 @pytest.mark.parametrize("transpose", [False, True])
