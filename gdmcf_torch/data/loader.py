@@ -1,7 +1,7 @@
 """Edge-list ``.npy`` triples -> scipy CSR user x item matrices, and the
 epoch's batches (the port's copy of the JAX package's ``data/loader.py``:
-``data_load``, ``data_load_dir``, ``DiffusionDataset``, ``epoch_stop`` and
-``epoch_batches``)."""
+``data_load``, ``data_load_dir``, ``DiffusionDataset``, ``epoch_stop``,
+``epoch_batches`` and ``generate_synthetic_dataset``)."""
 
 from __future__ import annotations
 
@@ -74,6 +74,14 @@ class DiffusionDataset:
         # count cells > 1 (duplicate pairs) or weights cannot be packed
         self.binary = is_binary(self.rows)
 
+    @classmethod
+    def from_rows(cls, rows: np.ndarray) -> "DiffusionDataset":
+        """Wrap an already-dense row matrix (no CSR densification)."""
+        self = cls.__new__(cls)
+        self.rows = np.ascontiguousarray(rows, dtype=np.float32)
+        self.binary = is_binary(self.rows)
+        return self
+
     def __len__(self) -> int:
         return self.rows.shape[0]
 
@@ -120,3 +128,72 @@ def epoch_batches(dataset, batch_size: int,
     for start in range(0, stop, batch_size):
         idx = order[start:start + batch_size]
         yield gather(idx), idx.astype(np.int32)
+
+
+def generate_synthetic_dataset(
+    out_dir: str,
+    n_user: int = 6000,
+    n_item: int = 2800,
+    avg_degree: int = 12,
+    valid_frac: float = 0.1,
+    test_frac: float = 0.2,
+    seed: int = 0,
+    alpha: float = 1.2,
+) -> Tuple[str, str, str]:
+    """Write train/valid/test_list.npy edge lists with power-law popularity;
+    the same files, byte for byte, as the JAX package's function for the
+    same arguments (the golden parity data was made with it).
+
+    Every user receives >= 3 interactions so each split is non-degenerate.
+    Returns the three file paths.
+    """
+    rng = np.random.default_rng(seed)
+    pop = 1.0 / np.arange(1, n_item + 1) ** alpha
+    pop /= pop.sum()
+
+    edges = []
+    for u in range(n_user):
+        deg = max(3, rng.poisson(avg_degree))
+        items = rng.choice(n_item, size=min(deg, n_item), replace=False, p=pop)
+        for i in items:
+            edges.append((u, int(i)))
+    edges = np.array(edges, dtype=np.int64)
+    rng.shuffle(edges)
+
+    # per-user split so valid/test ground truth is non-empty for most users
+    train, valid, test = [], [], []
+    by_user: dict = {}
+    for u, i in edges:
+        by_user.setdefault(u, []).append(i)
+    for u, items in by_user.items():
+        items = np.array(items)
+        n = len(items)
+        n_test = max(1, int(n * test_frac))
+        n_valid = max(1, int(n * valid_frac))
+        test.extend((u, i) for i in items[:n_test])
+        valid.extend((u, i) for i in items[n_test:n_test + n_valid])
+        train.extend((u, i) for i in items[n_test + n_valid:])
+
+    # data_load infers n_user/n_item from the TRAIN max ids: move one edge
+    # of every item/user that only occurs in valid/test into train so the
+    # inferred grid covers all ids
+    train_items = {i for _, i in train}
+    train_users = {u for u, _ in train}
+    for split in (valid, test):
+        kept = []
+        for u, i in split:
+            if i not in train_items or u not in train_users:
+                train.append((u, i))
+                train_items.add(i)
+                train_users.add(u)
+            else:
+                kept.append((u, i))
+        split[:] = kept
+
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for name, lst in (("train", train), ("valid", valid), ("test", test)):
+        path = os.path.join(out_dir, f"{name}_list.npy")
+        np.save(path, np.array(lst, dtype=np.int64))
+        paths.append(path)
+    return tuple(paths)

@@ -8,14 +8,21 @@ any ``k <= k_max`` is a prefix of that ranking.
         --device cuda --data_path ./Datasets/amazon-book_clean/
 
 serves the recipe's backbone (the flagship ``DNNOneHotEmbeddingGCN``;
-``--backbone lightGCN`` for the other). Without a checkpoint the
-recommender serves a fresh init (demo mode) or, from Python, a trained
-``Trainer`` (``build_recommender(..., trainer=t)``); loading checkpoints is
-not ported yet.
+``--backbone lightGCN`` for the other) from the newest checkpoint of
+``--ckpt_dir_serve`` (or ``--ckpt_dir``), as ``fit`` writes them. Without
+either the recommender serves a fresh init (demo mode) or, from Python, a
+trained ``Trainer`` (``build_recommender(..., trainer=t)``):
+
+    rec = Recommender.from_checkpoint(cfg, ckpt_dir, train_csr)
+    items, uids = rec.recommend([3, 17, 42], k=20)
+
+Hot reload of a running recommender (``reload_params``) is ROADMAP.md §A
+item 7.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Mapping, Optional, Sequence, Tuple
 
@@ -36,6 +43,25 @@ class Recommender:
         self._generator = torch.Generator(trainer.device).manual_seed(
             trainer.cfg.random_seed + 777)
         self._lock = threading.Lock()
+        self.ckpt_dir: Optional[str] = None   # set by from_checkpoint
+
+    @classmethod
+    def from_checkpoint(cls, cfg, ckpt_dir: str, train_csr,
+                        serve_batch: int = 256, k_max: int = 100,
+                        device=None) -> "Recommender":
+        """A new Trainer whose state is restored from the newest checkpoint
+        in ``ckpt_dir`` (``train/checkpoint.py``)."""
+        from gdmcf_torch.train.checkpoint import Checkpointer
+
+        # membership semantics: the history is which items to exclude
+        history = NativeCSR.from_scipy(train_csr, strict=False)
+        trainer = Trainer(cfg, history.n_user, history.n_item,
+                          train_csr=train_csr, device=device)
+        ckpt = Checkpointer(ckpt_dir)
+        ckpt.restore(trainer.init_state())
+        rec = cls(trainer, history, serve_batch, k_max)
+        rec.ckpt_dir = ckpt_dir
+        return rec
 
     @classmethod
     def from_state(cls, trainer: Trainer,
@@ -110,18 +136,26 @@ def build_recommender(cfg, ckpt_dir, train_csr, n_user: int, n_item: int,
                       warmup: bool = True, device=None,
                       trainer: Optional[Trainer] = None,
                       **kw) -> Recommender:
-    """Build the recommender and warm up: over ``trainer`` (a trained
-    Trainer, its parameters as they are) or, without one, a new Trainer
-    (demo mode: fresh init). Checkpoint loading is not ported yet."""
+    """Build the recommender and warm up: from the newest checkpoint in
+    ``ckpt_dir``, over ``trainer`` (a trained Trainer, its parameters as
+    they are) or, without either, a new Trainer (demo mode: fresh init)."""
     if ckpt_dir:
-        raise NotImplementedError(
-            "serving from a checkpoint is not ported yet (ROADMAP.md §A "
-            "item 3); omit --ckpt_dir_serve for demo mode")
-    if trainer is None:
-        trainer = Trainer(cfg, n_user, n_item, train_csr=train_csr,
-                          device=device)
-        print("no checkpoint; serving from fresh init (demo mode)")
-    rec = Recommender.from_state(trainer, None, train_csr, **kw)
+        # an EXPLICIT checkpoint dir that does not exist is an operator
+        # error (a typo, an unmounted volume): refuse rather than serve a
+        # fresh init to live traffic; demo mode is only for no dir at all
+        if not os.path.isdir(ckpt_dir):
+            raise FileNotFoundError(
+                f"--ckpt_dir_serve {ckpt_dir!r} does not exist or is not "
+                "a directory; omit the flag for fresh-init demo mode")
+        rec = Recommender.from_checkpoint(cfg, ckpt_dir, train_csr,
+                                          device=device, **kw)
+        print(f"loaded checkpoint from {ckpt_dir}")
+    else:
+        if trainer is None:
+            trainer = Trainer(cfg, n_user, n_item, train_csr=train_csr,
+                              device=device)
+            print("no checkpoint; serving from fresh init (demo mode)")
+        rec = Recommender.from_state(trainer, None, train_csr, **kw)
     if warmup:
         rec.warmup()
     return rec

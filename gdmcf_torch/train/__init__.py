@@ -1,1 +1,1 @@
-"""Trainer (the serving slice: model, diffusion, eval step)."""
+"""Trainer (train and eval steps, evaluate, fit), train state, checkpoints."""

@@ -42,10 +42,6 @@ def check_supported(cfg) -> None:
             f"opt_impl={cfg.opt_impl!r} is not ported: the port's one "
             "optimizer is the single-pass AdamW, which every other value "
             "selects (ROADMAP.md §A item 2, what waits)")
-    if cfg.lr_schedule != "constant" or cfg.lr_warmup_steps > 0:
-        raise NotImplementedError(
-            "lr schedules and warmup are not ported yet: ROADMAP.md §A "
-            "item 3")
 
 
 def create_train_state(cfg, model: torch.nn.Module, device) -> TrainState:

@@ -4,12 +4,17 @@ Port of the JAX package's ``train/trainer.py``: the train step is unpack ->
 ``training_losses`` -> mean -> backward -> optional global-norm clip ->
 AdamW (the single-pass update, a Triton kernel on CUDA tensors); the eval
 step is unpack -> ``p_sample`` -> mask seen items -> exact top-k.
-``train_epoch`` runs one process's epoch. ``fit``, ``evaluate`` and
-checkpoints are ROADMAP.md §A item 3.
+``train_epoch`` runs one process's epoch; ``evaluate`` (dense rows, cached
+on the device) and ``evaluate_streaming`` (batches assembled from
+``NativeCSR``) rank the catalog and sum the metrics on the device; ``fit``
+is the reference's main loop: train, evaluate every ``eval_every`` epochs,
+select on NDCG@topN[1], checkpoint, early-stop, resume.
 
 The train step updates the parameters, the moments and the Lt ring in
 place and returns the loss as a device tensor: nothing in a step waits for
-the host.
+the host. The learning rate of a schedule is a function of the host's step
+count, so it reaches the AdamW kernel through the same device scalar as a
+constant one.
 
 ``compute_dtype`` maps to the matmul precision on the GPU, for training and
 eval: ``bfloat16`` (the default) is the JAX package's "default" precision,
@@ -19,17 +24,21 @@ which on a GPU is TF32, so TF32 is on; ``float32`` turns TF32 off.
 from __future__ import annotations
 
 import contextlib
+import os
+import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from gdmcf_torch import resolve_device
-from gdmcf_torch.data.loader import epoch_batches
+from gdmcf_torch.data.loader import DiffusionDataset, epoch_batches, epoch_stop
 from gdmcf_torch.diffusion.engine import Diffusion, LtState, TrainDraws
 from gdmcf_torch.models.registry import build_model
-from gdmcf_torch.ops.bitpack import unpack_rows
+from gdmcf_torch.ops.bitpack import is_binary, pack_rows, unpack_rows
 from gdmcf_torch.ops.fused_adamw import fused_adamw_apply
+from gdmcf_torch.ops.metrics import (MetricAccumulator,
+                                     compute_topn_accuracy, print_results)
 from gdmcf_torch.ops.topk import chunked_topk
 from gdmcf_torch.train.state import TrainState, create_train_state
 
@@ -74,9 +83,52 @@ class Trainer:
         # TF32 only on the GPU: a CPU run stays in full float32
         self.tf32 = (self.device.type == "cuda"
                      and cfg.compute_dtype == "bfloat16")
+        # decay horizon of an lr schedule; fit() fills 0 in from epochs x
+        # steps per epoch before the first step
+        self._lr_total_steps = int(cfg.lr_total_steps)
+        self._lr_scheduled = (cfg.lr_schedule != "constant"
+                              or cfg.lr_warmup_steps > 0)
+        # device-resident eval batches and packed ground truth, cached
+        # across evaluations (matched by ``is``, at most 4 entries each)
+        self._eval_cache = []
+        self._gt_cache = []
 
     def init_state(self) -> TrainState:
         return create_train_state(self.cfg, self.model, self.device)
+
+    def num_params(self, state: TrainState) -> int:
+        return sum(p.numel() for p in state.params.values())
+
+    def _lr_at(self, step: int) -> float:
+        """Learning rate of the step that starts at ``step`` completed
+        steps: linear warmup over ``lr_warmup_steps``, then cosine or linear
+        decay over ``lr_total_steps``. float32 arithmetic, as the JAX
+        package computes it."""
+        cfg = self.cfg
+        if not self._lr_scheduled:
+            return cfg.lr
+        f32 = np.float32
+        s = f32(step)
+        lr = f32(cfg.lr)
+        if cfg.lr_warmup_steps > 0:
+            lr = lr * np.minimum((s + f32(1.0)) / f32(cfg.lr_warmup_steps),
+                                 f32(1.0))
+        if cfg.lr_schedule != "constant" and self._lr_total_steps > 0:
+            frac = np.clip(s / f32(self._lr_total_steps), f32(0.0), f32(1.0))
+            if cfg.lr_schedule == "cosine":
+                lr = lr * f32(0.5) * (f32(1.0) + np.cos(f32(np.pi) * frac))
+            else:   # linear
+                lr = lr * (f32(1.0) - frac)
+        return float(lr)
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """Host array -> device tensor. On CUDA through pinned memory and a
+        non-blocking copy: a copy from pageable memory would wait for the
+        stream, so host batch assembly could not overlap the device."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
 
     def _check_packed_width(self, x: torch.Tensor) -> None:
         want = (self.n_item + 7) // 8
@@ -126,8 +178,8 @@ class Trainer:
             grads = {k: (g.float() * scale).to(g.dtype)
                      for k, g in grads.items()}
         state.opt_state = fused_adamw_apply(
-            state.params, grads, state.opt_state, lr=self.cfg.lr,
-            weight_decay=self.cfg.weight_decay)
+            state.params, grads, state.opt_state,
+            lr=self._lr_at(state.step), weight_decay=self.cfg.weight_decay)
         state.lt = new_lt
         state.step += 1
         return state
@@ -178,3 +230,351 @@ class Trainer:
         scores = scores.masked_fill(mask > 0, float("-inf"))
         _, idx = chunked_topk(scores, top_k)
         return (idx, scores) if return_scores else idx
+
+    # -- evaluation --------------------------------------------------------
+    def _check_single_process(self) -> None:
+        cfg = self.cfg
+        dist = torch.distributed
+        if (cfg.mesh_dp * cfg.mesh_mp > 1
+                or (dist.is_available() and dist.is_initialized()
+                    and dist.get_world_size() > 1)):
+            raise NotImplementedError(
+                "multi-process evaluation (dp-sharded eval batches and the "
+                "cross-process metric reduce) is not ported yet: ROADMAP.md "
+                "§A item 9")
+
+    def _eval_generator(self, generator):
+        if generator is not None:
+            return generator
+        return torch.Generator(self.device).manual_seed(
+            self.cfg.random_seed + 12345)
+
+    def evaluate(self, state: TrainState, eval_rows: np.ndarray,
+                 gt_matrix: np.ndarray, mask_matrix: np.ndarray, topn,
+                 generator: Optional[torch.Generator] = None,
+                 drop_last: Optional[bool] = None):
+        """Rank the catalog for each eval row; (precision, recall, NDCG,
+        MRR) lists at ``topn``, rounded to 4 decimals.
+
+        eval_rows: the model inputs (the train rows); gt_matrix: the
+        ground-truth split; mask_matrix: the history to exclude (train, or
+        train+valid for test). ``drop_last``: None is ``cfg.drop_last``;
+        fit() passes False for the tst_w_val test eval, the one loader of
+        the reference built without drop_last. One generator, seeded
+        ``random_seed + 12345`` unless given, is consumed in batch order.
+        ``state`` is accepted for the JAX signature: the port's parameters
+        are the model's own tensors.
+
+        Binary ground truth is summed on the device against a bit-packed
+        cache: the rankings never leave the device and the sums come back
+        in one transfer per call."""
+        self._check_single_process()
+        cfg = self.cfg
+        generator = self._eval_generator(generator)
+        cached = self._prepare_eval_batches(eval_rows, mask_matrix,
+                                            drop_last=drop_last)
+        top_k = int(max(topn))   # unsorted topN still ranks enough items
+        gt_dev = self._prepare_gt_batches(gt_matrix, cached, eval_rows,
+                                          mask_matrix, drop_last)
+        acc = MetricAccumulator(topn)
+        all_idx, kept_users = [], []
+        for i, (start, rows, uids, mask) in enumerate(cached):
+            idx = self.eval_step(rows, uids, mask,
+                                 sampling_steps=cfg.sampling_steps,
+                                 top_k=top_k, generator=generator)
+            if gt_dev is not None:
+                acc.add_packed(gt_dev[i], idx, self.n_item)
+            else:   # count-valued ground truth: the host path
+                all_idx.append(idx.cpu().numpy())
+                kept_users.append(np.arange(start, start + rows.shape[0]))
+        if gt_dev is not None:
+            return acc.result()
+        users = np.concatenate(kept_users)
+        return compute_topn_accuracy(gt_matrix[users],
+                                     np.concatenate(all_idx), topn)
+
+    def _prepare_gt_batches(self, gt_matrix, cached, eval_rows, mask_matrix,
+                            drop_last):
+        """Bit-packed ground-truth slices on the device, one per eval batch
+        of ``_prepare_eval_batches``, cached across evaluations. None when
+        the ground truth is not binary (the host path takes it)."""
+        drop = self.cfg.drop_last if drop_last is None else drop_last
+        key = (gt_matrix, eval_rows, mask_matrix, self.cfg.batch_size, drop)
+        for k, dev in self._gt_cache:
+            if (k[0] is gt_matrix and k[1] is eval_rows
+                    and k[2] is mask_matrix and k[3:] == key[3:]):
+                return dev
+        # the binary check runs on a cache miss only: two passes over the
+        # dense ground truth per call would rival the eval itself
+        dev = None
+        if is_binary(gt_matrix):
+            dev = [self._to_device(pack_rows(
+                gt_matrix[start:start + rows.shape[0]]))
+                for start, rows, _u, _m in cached]
+        if len(self._gt_cache) >= 4:
+            self._gt_cache.pop(0)
+        self._gt_cache.append((key, dev))
+        return dev
+
+    def _prepare_eval_batches(self, eval_rows: np.ndarray,
+                              mask_matrix: np.ndarray,
+                              drop_last: Optional[bool] = None):
+        """Device-resident eval batches (start, rows, uids, mask), cached
+        across evaluations: the rows and masks are constant during
+        training. Entries hold the source arrays and match them with ``is``
+        (an ``id()`` of a collected temporary could be reused by another
+        array). Bit-packed when the wire format is packed and both arrays
+        are binary."""
+        cfg = self.cfg
+        drop = cfg.drop_last if drop_last is None else drop_last
+        for rows_ref, mask_ref, bs_key, drop_key, batches in self._eval_cache:
+            if (rows_ref is eval_rows and mask_ref is mask_matrix
+                    and bs_key == cfg.batch_size and drop_key == drop):
+                return batches
+        bs = cfg.batch_size
+        stop = epoch_stop(eval_rows.shape[0], bs, drop)
+        pack = (cfg.wire_format == "packed" and is_binary(eval_rows)
+                and is_binary(mask_matrix))
+        batches = []
+        for start in range(0, stop, bs):
+            rows_np = eval_rows[start:start + bs]
+            uids = self._to_device(np.arange(start, start + rows_np.shape[0],
+                                             dtype=np.int64))
+            rows = self._to_device(pack_rows(rows_np) if pack else rows_np)
+            if mask_matrix is eval_rows:
+                # the train-rows evals mask with the array they score:
+                # reuse the device rows instead of a second copy
+                mask = rows
+            else:
+                mask_np = mask_matrix[start:start + rows_np.shape[0]]
+                mask = self._to_device(pack_rows(mask_np) if pack
+                                       else mask_np)
+            batches.append((start, rows, uids, mask))
+        if len(self._eval_cache) >= 4:   # bound the device memory held
+            self._eval_cache.pop(0)
+        self._eval_cache.append((eval_rows, mask_matrix, cfg.batch_size,
+                                 drop, batches))
+        return batches
+
+    def evaluate_streaming(self, state: TrainState, input_csrs, gt_csr,
+                           mask_csrs, topn,
+                           generator: Optional[torch.Generator] = None,
+                           drop_last: Optional[bool] = None):
+        """Large-catalog eval: batches assembled from ``NativeCSR`` (O(nnz)
+        host memory), metrics streamed through ``MetricAccumulator`` —
+        nothing dense of size [n_user, n_item] exists on the host.
+
+        input_csrs / mask_csrs: lists of NativeCSR whose per-row union is
+        the model input / the history mask (e.g. [train] or [train,
+        valid])."""
+        self._check_single_process()
+        cfg = self.cfg
+        generator = self._eval_generator(generator)
+        n = len(input_csrs[0])
+        bs = cfg.batch_size
+        drop = cfg.drop_last if drop_last is None else drop_last
+        stop = epoch_stop(n, bs, drop)
+        acc = MetricAccumulator(topn)
+        top_k = int(max(topn))
+        pack = cfg.wire_format == "packed"
+        packed_gt = hasattr(gt_csr, "gather_packed")
+
+        def union(csrs, idx):
+            if pack and all(hasattr(c, "gather_packed") for c in csrs):
+                # binary rows: the OR of the packed rows is the packed union
+                out = csrs[0].gather_packed(idx)
+                for c in csrs[1:]:
+                    out = out | c.gather_packed(idx)
+                return out
+            out = csrs[0].gather(idx)
+            for c in csrs[1:]:
+                out = np.clip(out + c.gather(idx), 0.0, 1.0)
+            return pack_rows(out) if pack else out
+
+        for start in range(0, stop, bs):
+            idx = np.arange(start, min(start + bs, n), dtype=np.int64)
+            # bit-packed ground truth and on-device sums: dense [B, n_item]
+            # rows would be the largest per-batch transfer
+            gt = (gt_csr.gather_packed(idx) if packed_gt
+                  else gt_csr.gather(idx))
+            rows = union(input_csrs, idx)
+            # the valid evaluation masks with its own input rows
+            mask = (rows if list(mask_csrs) == list(input_csrs)
+                    else union(mask_csrs, idx))
+            rows_d = self._to_device(rows)
+            mask_d = rows_d if mask is rows else self._to_device(mask)
+            pred = self.eval_step(rows_d, self._to_device(idx), mask_d,
+                                  sampling_steps=cfg.sampling_steps,
+                                  top_k=top_k, generator=generator)
+            if packed_gt:
+                acc.add_packed(self._to_device(gt), pred, self.n_item)
+            else:
+                acc.add(gt, pred.cpu().numpy())
+        return acc.result()
+
+    # -- the main loop -------------------------------------------------------
+    def fit(self, train_csr, valid_csr, test_csr, log=print,
+            checkpointer=None, metric_logger=None):
+        """The reference's main loop: ``epochs`` of ``train_epoch`` (each
+        shuffled by ``np.random.default_rng((random_seed, epoch))``, so a
+        resumed run sees the permutations of an uninterrupted one), an
+        evaluation of valid and test every ``eval_every`` epochs, selection
+        on valid NDCG@topN[1] (``fidelity`` stores the TEST value as the
+        best, the reference's quirk), a best-checkpoint stream and a
+        ``periodic`` one (``ckpt_every``), early stop after
+        ``early_stop_patience`` epochs without a new best, and ``resume``
+        from the newer stream. ``host_dense`` chooses ``evaluate`` over
+        dense rows or ``evaluate_streaming`` over ``NativeCSR``. Returns
+        (state, the best epoch's test results).
+
+        Training starts from the module's current parameters (a new Trainer
+        holds its seeded init). ``train_steps_per_call``,
+        ``eval_batches_per_call`` and ``prefetch_batches`` are accepted and
+        mean single steps here."""
+        cfg = self.cfg
+        n_rows = cfg.n_user_cap or train_csr.shape[0]
+
+        def dense_rows(csr):
+            # slice -> astype -> toarray: peak memory O(n_rows x n_item) f32
+            return csr[:n_rows].astype(np.float32).toarray()
+
+        if cfg.host_dense:
+            train_rows = dense_rows(train_csr)
+            valid_gt = dense_rows(valid_csr)
+            test_gt = dense_rows(test_csr)
+            mask_tv = np.clip(train_rows + valid_gt, 0, 1)
+            dataset = DiffusionDataset.from_rows(train_rows)
+        else:
+            from gdmcf_torch.data.native import NativeCSR
+            train_n = NativeCSR.from_scipy(train_csr[:n_rows])
+            # ground truth and masks are MEMBERSHIP: strict=False, so a
+            # duplicate (uid, iid) pair in valid/test cannot stop the run
+            valid_n = NativeCSR.from_scipy(valid_csr[:n_rows], strict=False)
+            test_n = NativeCSR.from_scipy(test_csr[:n_rows], strict=False)
+            dataset = train_n
+
+        bs = cfg.batch_size
+        steps_per_epoch = max(len(dataset) // bs if cfg.drop_last
+                              else -(-len(dataset) // bs), 1)
+        if self._lr_scheduled and self._lr_total_steps == 0:
+            # decay horizon = this run's optimizer steps, set before step 1
+            self._lr_total_steps = cfg.epochs * steps_per_epoch
+
+        state = self.init_state()
+        log(f"Number of all parameters: {self.num_params(state)}")
+
+        if checkpointer is None and cfg.ckpt_dir:
+            from gdmcf_torch.train.checkpoint import Checkpointer
+            checkpointer = Checkpointer(cfg.ckpt_dir)
+        periodic = None
+        if checkpointer is not None and cfg.ckpt_every > 0:
+            # a stream of its own rotation: periodic saves never rotate out
+            # the best checkpoint
+            from gdmcf_torch.train.checkpoint import Checkpointer
+            periodic = Checkpointer(
+                os.path.join(checkpointer.directory, "periodic"),
+                max_to_keep=2)
+        start_epoch = 1
+        best_metric, best_epoch, best_results = -100.0, 0, None
+        if checkpointer is not None and cfg.resume:
+            # resume from whichever stream holds the newest step
+            src, latest = checkpointer, checkpointer.latest_step()
+            if periodic is not None:
+                p_latest = periodic.latest_step()
+                if p_latest is not None and (latest is None
+                                             or p_latest > latest):
+                    src, latest = periodic, p_latest
+            if latest is not None:
+                state = src.restore(state)
+                start_epoch = state.step // steps_per_epoch + 1
+                log(f"resumed from checkpoint at step {state.step} "
+                    f"(epoch {start_epoch})")
+                meta = src.load_extra()
+                if meta is not None:
+                    # model selection continues where it was, so the first
+                    # eval after a resume is no spurious new best
+                    best_metric = float(meta.get("best_metric", best_metric))
+                    best_epoch = int(meta.get("best_epoch", best_epoch))
+                    best_results = meta.get("best_results")
+                else:   # no sidecar: do not early-stop at once
+                    best_epoch = max(start_epoch - 1, 0)
+        topn = cfg.topN
+        for epoch in range(start_epoch, cfg.epochs + 1):
+            if epoch - best_epoch >= cfg.early_stop_patience:
+                log("-" * 18)
+                log("Exiting from training early")
+                break
+            start_time = time.time()
+            state, total_loss = self.train_epoch(
+                state, dataset, np.random.default_rng((cfg.random_seed,
+                                                       epoch)))
+
+            if epoch % cfg.eval_every == 0:
+                if cfg.host_dense:
+                    valid_results = self.evaluate(
+                        state, train_rows, valid_gt, train_rows, topn)
+                    if cfg.tst_w_val:
+                        # input rows == history mask (train+valid); the
+                        # reference's test_twv_loader keeps the partial batch
+                        test_results = self.evaluate(
+                            state, mask_tv, test_gt, mask_tv, topn,
+                            drop_last=False)
+                    else:
+                        test_results = self.evaluate(
+                            state, train_rows, test_gt, mask_tv, topn)
+                else:
+                    valid_results = self.evaluate_streaming(
+                        state, [train_n], valid_n, [train_n], topn)
+                    test_inputs = ([train_n, valid_n] if cfg.tst_w_val
+                                   else [train_n])
+                    test_results = self.evaluate_streaming(
+                        state, test_inputs, test_n, [train_n, valid_n], topn,
+                        drop_last=False if cfg.tst_w_val else None)
+                print_results(None, valid_results, test_results)
+                if metric_logger is not None:
+                    metric_logger.eval_results(epoch, "valid", topn,
+                                               valid_results)
+                    metric_logger.eval_results(epoch, "test", topn,
+                                               test_results)
+
+                # selection: index [2] is NDCG, cutoff topN[1] (the only
+                # cutoff if just one is configured)
+                sel = min(1, len(topn) - 1)
+                if valid_results[2][sel] > best_metric:
+                    if cfg.fidelity:
+                        best_metric = test_results[2][sel]  # reference quirk
+                    else:
+                        best_metric = valid_results[2][sel]
+                    best_epoch = epoch
+                    best_results = test_results
+                    if checkpointer is not None:
+                        # background write; the next save or the end of
+                        # fit joins it
+                        checkpointer.save(state, extra={
+                            "best_metric": float(best_metric),
+                            "best_epoch": int(best_epoch),
+                            "best_results": best_results}, block=False)
+
+            if periodic is not None and epoch % cfg.ckpt_every == 0:
+                # carries the current selection state, so a periodic resume
+                # keeps best tracking too
+                periodic.save(state, extra={
+                    "best_metric": float(best_metric),
+                    "best_epoch": int(best_epoch),
+                    "best_results": best_results}, block=False)
+            log("Runing Epoch {:03d} train loss {:.4f} costs {}".format(
+                epoch, total_loss,
+                time.strftime("%H: %M: %S",
+                              time.gmtime(time.time() - start_time))))
+            if metric_logger is not None:
+                metric_logger.metrics(epoch, train_loss=total_loss,
+                                      epoch_s=time.time() - start_time)
+        log("=" * 54)
+        log(f"End. Best Epoch {best_epoch:03d}")
+        if best_results is not None:
+            print_results(None, None, best_results)
+        if checkpointer is not None:
+            checkpointer.wait()   # commit any background save
+        if periodic is not None:
+            periodic.wait()
+        return state, best_results

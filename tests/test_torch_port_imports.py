@@ -97,8 +97,12 @@ def test_serve_cli_device_flag_and_checkpoint_refusal(tmp_path, capsys):
     main(base + ["--device", "cpu"])
     out = capsys.readouterr().out
     assert "user 5: top-4" in out and "on cpu" in out
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    # an explicit checkpoint directory must hold a checkpoint and exist
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
         main(base + ["--device", "cpu", "--ckpt_dir_serve", str(tmp_path)])
+    with pytest.raises(FileNotFoundError, match="does not exist"):
+        main(base + ["--device", "cpu", "--ckpt_dir_serve",
+                     str(tmp_path / "missing")])
 
 
 def test_other_backbones_name_their_roadmap_item():

@@ -236,8 +236,7 @@ def test_trainer_refuses_noise_scale_zero_for_the_graph_backbone():
 
 @pytest.mark.parametrize("field,value", [
     ("param_dtype", "bfloat16"), ("bf16_weights", ("in_layers",)),
-    ("opt_impl", "optax"), ("lr_schedule", "cosine"),
-    ("lr_warmup_steps", 10)])
+    ("opt_impl", "optax")])
 def test_unported_optimizer_options_raise(field, value):
     t = TTrainer(TConfig(device="cpu", dims=[8], **{field: value}), 4, 5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -353,6 +352,38 @@ def test_three_train_steps_match_the_jax_trainer(recipe, moment_dtype):
                 assert not bad.any(), f"step {step} {which} {name}"
                 prev_m[(which, name)] = w
     assert tstate.step == 3 and int(jstate.step) == 3
+
+
+@pytest.mark.parametrize("schedule,warmup", [("cosine", 0), ("linear", 2),
+                                             ("constant", 3)])
+def test_three_train_steps_under_an_lr_schedule_match_the_jax_trainer(
+        schedule, warmup):
+    """The JAX package runs schedules with its inline AdamW; the port's K1
+    reads the scheduled lr from its device scalar. Horizon 4 steps, so the
+    three steps see three different learning rates. Tolerances as above."""
+    jt, jstate, tt = trainer_pair("yelp", opt_impl="inline",
+                                  lr_schedule=schedule, lr_warmup_steps=warmup,
+                                  lr_total_steps=4)
+    assert jt._opt_impl == "inline" and tt._lr_scheduled
+    tstate = tt.init_state()
+    b = RECIPES["yelp"]["batch_size"]
+    for step in range(3):
+        np.testing.assert_allclose(tt._lr_at(step), float(jt._lr_at(step)),
+                                   rtol=1e-6)
+        x, idx = batch(10 + step, b)
+        _, step_key = jax.random.split(jstate.key)
+        draws = jax_train_draws(jt.diffusion, jstate.lt, step_key, b,
+                                N_ITEM)
+        jstate, jloss = jt._train_step(jstate, jnp.asarray(x),
+                                       jnp.asarray(idx))
+        tstate, tloss = tt.train_step(tstate, t_(x), t_(idx), draws=draws)
+        np.testing.assert_allclose(tloss.item(), float(jloss), rtol=1e-5)
+        want_p = bridged(jstate.params)
+        for name, p in tstate.params.items():
+            np.testing.assert_allclose(p.detach().numpy(), want_p[name],
+                                       err_msg=f"step {step} {name}",
+                                       rtol=1e-4,
+                                       atol=1e-3 * RECIPES["yelp"]["lr"])
 
 
 # ---------------------------------------------------------------------------
