@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Drive gdmcf_torch's serving and training paths on one NVIDIA GPU and
-check them.
+"""Drive gdmcf_torch's serving, training and LightGCN pretraining paths on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                  # from the root of a checkout
     python3 chip_smoke.py --profile FILE   # also writes torch.profiler
                                            # tables of 5 lightGCN dispatches,
-                                           # 5 flagship train steps and 5
-                                           # flagship dispatches, and times
-                                           # the SpMM kernel at several
-                                           # segment lengths
+                                           # 5 flagship train steps, 5
+                                           # flagship dispatches and 5 BPR
+                                           # steps, and times the SpMM
+                                           # kernel at several segment
+                                           # lengths
 
 Phases (any failure exits non-zero):
   1. build the CUDA kernel from gdmcf_torch/csrc/ and print the card;
@@ -68,7 +69,31 @@ Phases (any failure exits non-zero):
      RESUME_RTOL; then one `python -m gdmcf_torch.cli` subprocess on cuda
      (golden geometry, 5 epochs), checked for metrics.jsonl and the
      "End. Best Epoch" line;
- 11. the kernel JSON line, the card's name and power limit, and as the
+ 11. gradients through the SpMM kernel: d/d e0 of (fu w_u).sum() +
+     (fi w_i).sum() through propagate_hybrid, 3 layers, on the phase-2
+     graph's pattern normalized as LightGCN does, D 64 and 50, against the
+     same loss through both plain versions (deterministic index_add_) and
+     dense autograd through N, within TOL; two backward passes bitwise
+     equal; exactly 3 + 3 launches forward and 3 + 3 backward;
+ 12. LightGCN pretraining at the Amazon-Book size: the graph of phases 3-9,
+     the reference recipe (3 layers, dim 64, batch 1024, lr 5e-3, decay
+     1e-4), the hybrid operand (br 8, bc 128), evaluation off, one epoch
+     of nnz // 1024 = 2,127 steps: finite losses, the epoch's mean below
+     the first step's, every row the batches touched moved, 6 launches per
+     direction and one AdamW launch a step, the final tables against the
+     plain propagation of the returned initial ones; the epoch, the step
+     (synced; host sampling excluded and included), host sampling, the
+     backward launches alone and peak memory (with --profile also a table
+     of 5 BPR steps);
+ 13. the LightGCN golden gate: generate_ml100k_csv(400, 600, 40, seed 0)
+     and load_ml100k (400 x 584), pretrain at seeds 0-2 for 30 epochs,
+     judged with the band rule of benchmarks/lightgcn_parity.py against
+     the reference runs of docs/parity_data/lightgcn_parity.json, once on
+     the dense operand and once on the hybrid one; both must read
+     "parity": true (written to chiprun_out/torch_lightgcn_parity.json);
+ 14. one `python -m gdmcf_torch.pretrain_cli` subprocess on cuda over the
+     golden dataset, 2 epochs, checked for the .npz's four tables;
+ 15. the kernel JSON line, the card's name and power limit, and as the
      last line {"ok": true, "device": {...}}.
 """
 
@@ -99,6 +124,10 @@ GOLDEN_EPOCHS = 150
 # losses are held to float32 noise, not to equality
 RESUME_RTOL = 1e-4
 METRIC_RTOL = dict(rtol=1e-5, atol=1e-6)  # float32 sums of <= 400 users
+PRETRAIN_BATCH = 1024
+PRETRAIN_STEPS = 2_127         # nnz // batch on the graph of phases 3-9
+LGN_GATE_SEEDS = (0, 1, 2)
+LGN_GATE_EPOCHS = 30
 
 
 def log(*a):
@@ -173,11 +202,10 @@ def tol_share(y, want) -> float:
     return ((y - want).abs() / bound).max().item()
 
 
-def kernel_phase(S, torch):
-    """Phase 2: the kernel against its plain version on the card; returns
-    the largest |kernel - plain| per direction."""
+def phase2_matrix(rng):
+    """The phase-2 operand: 1000 x 700 with empty rows and columns,
+    duplicate COO entries and a dense row and column."""
     import scipy.sparse as sp
-    rng = np.random.default_rng(0)
     n_rows, n_cols = 1000, 700           # x has fewer rows than the grid
     m = sp.random(n_rows, n_cols, density=0.03, random_state=1,
                   format="coo", dtype=np.float32)
@@ -195,6 +223,15 @@ def kernel_phase(S, torch):
          (np.concatenate([r, r[dup], dr, np.zeros(len(dc), np.int64)]),
           np.concatenate([c, c[dup], np.zeros(len(dr), np.int64), dc]))),
         shape=(n_rows, n_cols))
+    return m
+
+
+def kernel_phase(S, torch):
+    """Phase 2: the kernel against its plain version on the card; returns
+    the largest |kernel - plain| per direction."""
+    rng = np.random.default_rng(0)
+    m = phase2_matrix(rng)
+    n_rows, n_cols = m.shape
     dense = m.toarray()
     worst = {"spmm_rows_fwd": 0.0, "spmm_rows_t": 0.0}
     worst_share = 0.0
@@ -1106,15 +1143,401 @@ def cli_phase(root, data_dir):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def grad_of(torch, prop, e0, w_u, w_i, n_user):
+    """d/d e0 of (fu * w_u).sum() + (fi * w_i).sum() through prop."""
+    e = e0.clone().requires_grad_(True)
+    fu, fi = prop(e[:n_user], e[n_user:])
+    loss = (fu * w_u).sum() + (fi * w_i).sum()
+    return torch.autograd.grad(loss, e)[0]
+
+
+def gradient_phase(torch):
+    """Phase 11: gradients through the differentiable product at the
+    phase-2 graph (its pattern as interactions, normalized as LightGCN
+    does), 3 layers, against the plain versions and dense autograd."""
+    from gdmcf_torch.models import lightgcn as lg
+    from gdmcf_torch.ops import spmm as S
+
+    m = phase2_matrix(np.random.default_rng(0)).tocsr()
+    m.data[:] = 1.0
+    n, _ = lg._normalized_sparse_n(m, 1e-9, False)
+    h = S.to_hybrid(n, br=8, bc=128, min_fill=32)
+    assert h.rem_vals.numel() > 1_000
+    h = h.to("cuda")
+    n_user, n_item = n.shape
+    dense = torch.from_numpy(n.toarray()).cuda()
+    rng = np.random.default_rng(5)
+    worst, launches = 0.0, {"spmm_rows_fwd": 0, "spmm_rows_t": 0}
+    for d in (64, 50):
+        e0, w_u, w_i = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda() for shape in ((n_user + n_item, d),
+                                              (n_user, d), (n_item, d)))
+        S.reset_launch_counts()
+        e = e0.clone().requires_grad_(True)
+        fu, fi = lg.propagate_hybrid(e[:n_user], e[n_user:], h, 3)
+        torch.cuda.synchronize()
+        fwd = dict(S.LAUNCHES)
+        (g,) = torch.autograd.grad((fu * w_u).sum() + (fi * w_i).sum(), e)
+        torch.cuda.synchronize()
+        both = dict(S.LAUNCHES)
+        assert fwd == {"spmm_rows_fwd": 3, "spmm_rows_t": 3}, fwd
+        assert both == {"spmm_rows_fwd": 6, "spmm_rows_t": 6}, both
+        for k in launches:
+            launches[k] += both[k]
+        again = grad_of(torch, lambda u, i: lg.propagate_hybrid(u, i, h, 3),
+                        e0, w_u, w_i, n_user)
+        torch.cuda.synchronize()
+        assert torch.equal(g, again), "two backward passes differ"
+        with deterministic(torch):
+            rows = grad_of(torch, lambda u, i: lg._layers(
+                u, i, 3, lambda x: S.spmm_rows_reference(h.fwd_rows, x),
+                lambda x: S.spmm_rows_reference(h.t_rows, x)),
+                e0, w_u, w_i, n_user)
+            tpu = grad_of(torch, lambda u, i: lg._layers(
+                u, i, 3, lambda x: S.hybrid_spmm_reference(h, x, False),
+                lambda x: S.hybrid_spmm_reference(h, x, True)),
+                e0, w_u, w_i, n_user)
+        full = grad_of(torch, lambda u, i: lg.propagate(u, i, dense, 3),
+                       e0, w_u, w_i, n_user)
+        shares = []
+        for label, want in (("plain row gather", rows),
+                             ("plain tiles + COO", tpu),
+                             ("dense autograd", full)):
+            torch.testing.assert_close(g, want, **TOL)
+            shares.append(f"{label} {tol_share(g, want):.3f}")
+            worst = max(worst, (g - want).abs().max().item())
+        log(f"gradient d={d}: 3 layers of propagate_hybrid over "
+            f"{h.fwd_rows.nnz} nonzeros ({h.rem_vals.numel()} in the COO "
+            f"remainder); launches forward {fwd}, forward and backward "
+            f"{both}; two backward passes bitwise equal; share of the "
+            f"tolerance (rtol {TOL['rtol']}, atol {TOL['atol']}): "
+            + ", ".join(shares))
+    return worst, launches
+
+
+def replay_batches(ncsr, seed: int, steps: int, batch: int):
+    """The batches pretrain draws at this seed, replayed; returns them and
+    the host time per batch."""
+    from gdmcf_torch.models import lightgcn as lg
+    rng = np.random.default_rng(seed)
+    ncsr.sample_bpr(np.zeros(1, np.int64), 0)   # the index, built once
+    out = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        users = lg._choose_users(rng, ncsr.n_user, batch)
+        pos, neg = ncsr.sample_bpr(users, int(rng.integers(2 ** 62)))
+        out.append(np.stack([users, pos, neg]).astype(np.int64))
+    return out, (time.perf_counter() - t0) / steps * 1e3
+
+
+def pretrain_phase(args, card, torch, csr):
+    """Phase 12: one epoch of LightGCN pretraining at the Amazon-Book size
+    (the graph of phases 3-9) with the reference recipe on the hybrid
+    operand, checked and timed."""
+    from gdmcf_torch.data.native import NativeCSR
+    from gdmcf_torch.models import lightgcn as lg
+    from gdmcf_torch.ops import fused_adamw as FA
+    from gdmcf_torch.ops import spmm as S
+    from gdmcf_torch.train.trainer import matmul_precision
+
+    steps = csr.nnz // PRETRAIN_BATCH
+    assert steps == PRETRAIN_STEPS, steps
+    mark = {}
+
+    def at_epoch_end(line):
+        torch.cuda.synchronize()
+        mark.update(t=time.perf_counter(), line=line, spmm=dict(S.LAUNCHES),
+                    adamw=FA.LAUNCHES["fused_adamw"])
+
+    S.reset_launch_counts()
+    FA.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = lg.pretrain(csr, csr, n_layers=3, latent_dim=64, epochs=1,
+                      batch_size=PRETRAIN_BATCH, lr=0.005, decay=1e-4, k=10,
+                      seed=0, log=at_epoch_end, sparse="hybrid",
+                      block_size=128, block_rows=8, evaluate=False,
+                      device="cuda")
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    spmm, adamw = mark["spmm"], mark["adamw"]
+    want = {"spmm_rows_fwd": 6 * steps, "spmm_rows_t": 6 * steps}
+    assert spmm == want, spmm
+    assert adamw == steps, adamw
+    final = dict(S.LAUNCHES)
+    assert final == {k: v + 3 for k, v in want.items()}, final
+    mean_loss = float(mark["line"].split()[-1])
+    log(f"pretrain (Amazon-Book size, hybrid br 8 bc 128, 3 layers, dim 64, "
+        f"batch {PRETRAIN_BATCH}, lr 0.005, decay 1e-4): {steps} steps; "
+        f"epoch ends {mark['t'] - t0:.2f} s after the call starts (operand "
+        f"build and upload included), call {call_s:.2f} s with the final "
+        f"propagation and the copies back; launches at the epoch's end "
+        f"{spmm} and fused_adamw {adamw}, after the final tables {final}; "
+        f"peak device memory {peak:.2f} GiB; {mark['line']} [{card}]")
+
+    # the first step's loss, the rows the batches touched, host sampling
+    ncsr = NativeCSR.from_scipy(csr, strict=False)
+    batches, sample_ms = replay_batches(ncsr, 0, steps, PRETRAIN_BATCH)
+    h = lg.normalized_bipartite_hybrid(csr, br=8, bc=128).to("cuda")
+    init = lg.initial_table(N_USER + N_ITEM, 64, 0, "cuda")
+    b0 = torch.from_numpy(batches[0]).cuda()
+    with torch.no_grad(), matmul_precision(tf32=False):
+        fu, fi = lg.propagate_rows(init[:N_USER], init[N_USER:], h.fwd_rows,
+                                   h.t_rows, 3)
+        loss, reg = lg.bpr_loss(fu[b0[0]], fi[b0[1]], fi[b0[2]], init[b0[0]],
+                                init[N_USER + b0[1]], init[N_USER + b0[2]],
+                                PRETRAIN_BATCH)
+        first = (loss + 1e-4 * reg).item()
+    assert np.isfinite(mean_loss) and mean_loss < first, (mean_loss, first)
+    touched = np.zeros(N_USER + N_ITEM, bool)
+    for b in batches:
+        touched[b[0]] = True
+        touched[N_USER + b[1]] = True
+        touched[N_USER + b[2]] = True
+    trained = np.concatenate([res.initial_user, res.initial_item])
+    moved = (trained != init.cpu().numpy()).any(axis=1)
+    assert np.isfinite(trained).all() and moved[touched].all(), \
+        "a row the batches touched did not move"
+    log(f"pretrain: epoch mean loss {mean_loss:.4f} < first step's "
+        f"{first:.4f}; {int(touched.sum())} rows touched by the batches, all "
+        f"moved ({int(moved.sum())} of {len(moved)} moved); host sampling "
+        f"{sample_ms:.3f} ms per batch of {PRETRAIN_BATCH} (replayed)")
+
+    # the returned final tables: the returned initial ones propagated by
+    # the plain version
+    u0 = torch.from_numpy(res.initial_user).cuda()
+    i0 = torch.from_numpy(res.initial_item).cuda()
+    with deterministic(torch), matmul_precision(tf32=False):
+        pu, pi = lg._layers(
+            u0, i0, 3, lambda x: S.hybrid_spmm_reference(h, x, False),
+            lambda x: S.hybrid_spmm_reference(h, x, True))
+    fu_k = torch.from_numpy(res.final_user).cuda()
+    fi_k = torch.from_numpy(res.final_item).cuda()
+    torch.testing.assert_close(fu_k, pu, **TOL)
+    torch.testing.assert_close(fi_k, pi, **TOL)
+    share = max(tol_share(fu_k, pu), tol_share(fi_k, pi))
+    log(f"pretrain: final tables vs the plain tiles + COO propagation of "
+        f"the returned initial tables: max abs err "
+        f"{max((fu_k - pu).abs().max().item(), (fi_k - pi).abs().max().item()):.3e}"
+        f", {share:.3f} of the tolerance")
+    del pu, pi, fu_k, fi_k, fu, fi
+
+    # step times, then the backward launches alone
+    def prop(e):
+        return lg.propagate_rows(e[:N_USER], e[N_USER:], h.fwd_rows,
+                                 h.t_rows, 3)
+    e = torch.from_numpy(trained).cuda().requires_grad_(True)
+    opt = FA.fused_adamw_init({"e0": e}, torch.float32)
+    rng = np.random.default_rng(1)
+
+    def sample():
+        users = lg._choose_users(rng, N_USER, PRETRAIN_BATCH)
+        pos, neg = ncsr.sample_bpr(users, int(rng.integers(2 ** 62)))
+        return torch.from_numpy(np.stack([users, pos, neg]).astype(np.int64))
+
+    def step(batch):
+        nonlocal opt
+        opt, _ = lg.bpr_step(e, opt, prop, batch.pin_memory().to(
+            "cuda", non_blocking=True), N_USER, 0.005, 1e-4)
+
+    times = {"excluded": [], "included": []}
+    with matmul_precision(tf32=False):
+        pre = [sample() for _ in range(30)]
+        for batch in pre:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step(batch)
+            torch.cuda.synchronize()
+            times["excluded"].append((time.perf_counter() - t1) * 1e3)
+        for _ in range(30):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step(sample())
+            torch.cuda.synchronize()
+            times["included"].append((time.perf_counter() - t1) * 1e3)
+        stats = {k: (float(np.percentile(v[5:], 50)),
+                     float(np.percentile(v[5:], 90)))
+                 for k, v in times.items()}
+        log(f"pretrain step (synced, 25 steps after 5 warm-up): host "
+            f"sampling excluded p50 {stats['excluded'][0]:.3f} ms p90 "
+            f"{stats['excluded'][1]:.3f} ms; included p50 "
+            f"{stats['included'][0]:.3f} ms p90 {stats['included'][1]:.3f} "
+            f"ms; epoch at the excluded p50 "
+            f"{stats['excluded'][0] * steps / 1e3:.2f} s [{card}]")
+        g_u = torch.randn(h.fwd_rows.n_out, 64, device="cuda")
+        g_i = torch.randn(h.t_rows.n_out, 64, device="cuda")
+        bwd = {"spmm_rows_t": cuda_ms(lambda: S.spmm_rows(h.t_rows, g_u)),
+               "spmm_rows_fwd": cuda_ms(lambda: S.spmm_rows(h.fwd_rows, g_i))}
+        log(f"backward launches at D 64 on the whole hybrid N: N^T g "
+            f"(spmm_rows_t, g [{h.fwd_rows.n_out}, 64]) "
+            f"{bwd['spmm_rows_t']:.4f} ms, N g (spmm_rows_fwd, g "
+            f"[{h.t_rows.n_out}, 64]) {bwd['spmm_rows_fwd']:.4f} ms [{card}]")
+        if args.profile:
+            write_profile(args.profile, card,
+                          f"5 LightGCN BPR steps of {PRETRAIN_BATCH}, host "
+                          f"sampling included",
+                          lambda: [step(sample()) for _ in range(5)], torch,
+                          mode="a")
+    del e, opt, h, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return spmm, adamw, bwd, stats, sample_ms
+
+
+def parity_band(root):
+    """``band`` of benchmarks/lightgcn_parity.py (that file imports only
+    the standard library and numpy at module level)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "lightgcn_parity", os.path.join(root, "benchmarks",
+                                        "lightgcn_parity.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.band
+
+
+def parse_pretrain_log(lines, n_users, n_items, seed):
+    """The log lines of pretrain as benchmarks/lightgcn_parity.py reads
+    them."""
+    out = {"recall": [], "precision": [], "ndcg": [], "map": [], "loss": [],
+           "n_users": n_users, "n_items": n_items, "seed": seed}
+    for ln in lines:
+        parts = ln.split()
+        d = {parts[i].split("@")[0]: float(parts[i + 1])
+             for i in range(2, len(parts), 2)}
+        out["loss"].append(round(d["loss"], 4))
+        for k in ("recall", "precision", "ndcg", "map"):
+            out[k].append(round(d[k], 4))
+    return out
+
+
+def lightgcn_gate_phase(root, card, torch):
+    """Phase 13: the LightGCN golden gate, 3 seeds x 30 epochs of the
+    reference recipe on the ml-100k-shaped data, judged against the
+    reference runs in docs/parity_data/lightgcn_parity.json with the band
+    rule of benchmarks/lightgcn_parity.py, once with the recipe's dense
+    operand and once with the hybrid one."""
+    from gdmcf_torch.data.loader import generate_ml100k_csv, load_ml100k
+    from gdmcf_torch.models import lightgcn as lg
+    from gdmcf_torch.ops import fused_adamw as FA
+    from gdmcf_torch.ops import spmm as S
+
+    band = parity_band(root)
+    with open(os.path.join(root, "docs", "parity_data",
+                           "lightgcn_parity.json")) as fh:
+        refs = json.load(fh)["reference"]
+    tmp = tempfile.mkdtemp(prefix="gdmcf_ml100k_")
+    try:
+        path = generate_ml100k_csv(os.path.join(tmp, "u.data"), n_user=400,
+                                   n_item=600, avg_degree=40, seed=0)
+        train, test, n_users, n_items = load_ml100k(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert (n_users, n_items) == (400, 584), (n_users, n_items)
+    steps = train.nnz // 1024
+    tail = lambda xs: float(np.mean(xs[-8:]))  # noqa: E731
+    results, launches = {}, {}
+    for mode, sparse in (("dense", None), ("hybrid", "hybrid")):
+        S.reset_launch_counts()
+        FA.reset_launch_counts()
+        ours = []
+        for seed in LGN_GATE_SEEDS:
+            lines = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg.pretrain(train, test, n_layers=3, latent_dim=64,
+                        epochs=LGN_GATE_EPOCHS, batch_size=1024, lr=0.005,
+                        decay=1e-4, k=10, seed=seed, log=lines.append,
+                        sparse=sparse, device="cuda")
+            torch.cuda.synchronize()
+            run = parse_pretrain_log(lines, n_users, n_items, seed)
+            run["elapsed_s"] = round(time.perf_counter() - t0, 2)
+            assert len(run["loss"]) == LGN_GATE_EPOCHS
+            assert np.isfinite(run["loss"]).all()
+            ours.append(run)
+            log(f"lightgcn gate {mode} seed {seed}: final r/p/n/m "
+                f"{run['recall'][-1]}/{run['precision'][-1]}/"
+                f"{run['ndcg'][-1]}/{run['map'][-1]}, tail loss "
+                f"{tail(run['loss']):.4f} ({run['elapsed_s']} s) [{card}]")
+        n = len(LGN_GATE_SEEDS)
+        # per epoch: each step 3 layers x 2 directions forward and
+        # backward, and the evaluation's forward propagation
+        per_dir = n * LGN_GATE_EPOCHS * (6 * steps + 3)
+        want = ({"spmm_rows_fwd": per_dir, "spmm_rows_t": per_dir}
+                if sparse else {"spmm_rows_fwd": 0, "spmm_rows_t": 0})
+        assert S.LAUNCHES == want, (S.LAUNCHES, want)
+        assert FA.LAUNCHES["fused_adamw"] == n * LGN_GATE_EPOCHS * steps
+        launches[mode] = dict(S.LAUNCHES,
+                              fused_adamw=FA.LAUNCHES["fused_adamw"])
+        checks = {}
+        for m in ("recall", "precision", "ndcg", "map"):
+            lo, hi = band([r[m][-1] for r in refs], 1.0)
+            checks[f"final_{m}@10"] = all(lo <= o[m][-1] <= hi for o in ours)
+        lo, hi = band([tail(r["loss"]) for r in refs], 1.0)
+        checks["tail_bpr_loss"] = all(lo <= tail(o["loss"]) <= hi
+                                      for o in ours)
+        results[mode] = {"reference": refs, "gdmcf_torch": ours,
+                         "checks": checks, "parity": all(checks.values()),
+                         "device": card}
+        log(f"lightgcn_parity ({mode}, launches {launches[mode]}): "
+            + json.dumps({"checks": checks,
+                          "parity": results[mode]["parity"]}))
+    out = os.path.join(root, "chiprun_out", "torch_lightgcn_parity.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as fh:
+        json.dump(results, fh)
+    for mode, res in results.items():
+        assert res["parity"] is True, f"the LightGCN gate failed ({mode})"
+    log(f"lightgcn gate: parity true, dense and hybrid; written to {out}")
+    return launches
+
+
+def pretrain_cli_phase(root, data_dir):
+    """Phase 14: one `python -m gdmcf_torch.pretrain_cli` on cuda over the
+    golden dataset (dense, with the evaluation), 2 epochs."""
+    from gdmcf_torch.data.loader import data_load_dir
+
+    _, _, _, n_user, n_item = data_load_dir(data_dir)
+    tmp = tempfile.mkdtemp(prefix="gdmcf_pretrain_cli_")
+    try:
+        out = os.path.join(tmp, "emb")
+        cmd = [sys.executable, "-m", "gdmcf_torch.pretrain_cli", "--device",
+               "cuda", "--data_path", data_dir, "--epochs", "2",
+               "--out_dir", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, env=dict(os.environ,
+                                                      PYTHONPATH=root),
+                              capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        with np.load(os.path.join(out, "lightgcn_embeddings.npz")) as z:
+            shapes = {k: z[k].shape for k in sorted(z.files)}
+            assert all(np.isfinite(z[k]).all() for k in z.files)
+        assert shapes == {"final_item_Embed": (n_item, 64),
+                          "final_user_Embed": (n_user, 64),
+                          "initial_item_Embed": (n_item, 64),
+                          "initial_user_Embed": (n_user, 64)}, shapes
+        lines = proc.stdout.strip().splitlines()
+        assert sum("ndcg@10" in ln for ln in lines) == 2
+        log(f"pretrain_cli: python -m gdmcf_torch.pretrain_cli, 2 epochs on "
+            f"{n_user} x {n_item} in {wall:.1f} s (process start included); "
+            f"lightgcn_embeddings.npz {shapes}; last lines: "
+            + " | ".join(lines[-2:]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="FILE", default=None,
                         help="write torch.profiler tables of 5 lightGCN "
-                             "dispatches, 5 flagship train steps and 5 "
-                             "flagship dispatches, and time the SpMM kernel "
-                             "at several segment lengths")
+                             "dispatches, 5 flagship train steps, 5 "
+                             "flagship dispatches and 5 BPR steps, and time "
+                             "the SpMM kernel at several segment lengths")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1202,10 +1625,42 @@ def main() -> int:
         # 10. resume, then the CLI
         resume_phase(card, torch, data_dir)
         cli_phase(root, data_dir)
+
+        # 11. gradients through the SpMM kernel (TF32 off)
+        with matmul_precision(tf32=False):
+            grad_err, grad_launches = gradient_phase(torch)
+        for k in kernels[:2]:
+            k["launches_gradient"] = grad_launches[k["name"]]
+            k["max_abs_err_gradient"] = grad_err
+
+        # 12. LightGCN pretraining at the Amazon-Book size
+        t0 = time.perf_counter()
+        spmm, adamw, bwd, stats, sample_ms = pretrain_phase(args, card,
+                                                            torch, csr)
+        for k in kernels[:2]:
+            k["launches_pretrain_epoch"] = spmm[k["name"]]
+            k["backward_ms"] = bwd[k["name"]]
+        entry["launches_pretrain_epoch"] = adamw
+        entry["pretrain_step_ms_p50"] = stats["excluded"][0]
+        log(f"pretrain phase: {time.perf_counter() - t0:.1f} s")
+        del csr
+        gc.collect()
+
+        # 13. the LightGCN golden gate, dense and hybrid
+        t0 = time.perf_counter()
+        gate = lightgcn_gate_phase(root, card, torch)
+        for k in kernels[:2]:
+            k["launches_lightgcn_gate"] = gate["hybrid"][k["name"]]
+        entry["launches_lightgcn_gate"] = (gate["dense"]["fused_adamw"]
+                                           + gate["hybrid"]["fused_adamw"])
+        log(f"lightgcn gate phase: {time.perf_counter() - t0:.1f} s")
+
+        # 14. the pretraining CLI
+        pretrain_cli_phase(root, data_dir)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    # 11. results
+    # 15. results
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

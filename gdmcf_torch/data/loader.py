@@ -1,7 +1,9 @@
 """Edge-list ``.npy`` triples -> scipy CSR user x item matrices, and the
 epoch's batches (the port's copy of the JAX package's ``data/loader.py``:
 ``data_load``, ``data_load_dir``, ``DiffusionDataset``, ``epoch_stop``,
-``epoch_batches`` and ``generate_synthetic_dataset``)."""
+``epoch_batches``, ``generate_synthetic_dataset``, and the LightGCN
+pretrainer's ml-100k ingest ``generate_ml100k_csv`` / ``load_ml100k``, in
+numpy alone)."""
 
 from __future__ import annotations
 
@@ -197,3 +199,75 @@ def generate_synthetic_dataset(
         np.save(path, np.array(lst, dtype=np.int64))
         paths.append(path)
     return tuple(paths)
+
+
+def generate_ml100k_csv(path: str, n_user: int = 400, n_item: int = 600,
+                        avg_degree: int = 40, seed: int = 0,
+                        alpha: float = 1.1) -> str:
+    """Write a synthetic ml-100k-shaped ``u.data`` TSV (user_id, item_id,
+    rating 1-5, timestamp), the input of the reference LightGCN
+    pretrainer's ingest; the JAX package's file byte for byte. Raw ids
+    start at 1 and skip about 20% of the id space, so the label encoding
+    has work to do."""
+    rng = np.random.default_rng(seed)
+    pop = 1.0 / np.arange(1, n_item + 1) ** alpha
+    pop /= pop.sum()
+    user_ids = np.sort(rng.choice(n_user * 5, n_user, replace=False)) + 1
+    item_ids = np.sort(rng.choice(n_item * 5, n_item, replace=False)) + 1
+    rows = []
+    for u in user_ids:
+        deg = max(5, rng.poisson(avg_degree))
+        items = rng.choice(n_item, size=min(deg, n_item), replace=False,
+                           p=pop)
+        for i in items:
+            rating = int(rng.integers(1, 6))
+            ts = int(rng.integers(874_000_000, 893_000_000))
+            rows.append((int(u), int(item_ids[i]), rating, ts))
+    rng.shuffle(rows)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as fh:
+        for r in rows:
+            fh.write("\t".join(str(v) for v in r) + "\n")
+    return path
+
+
+def load_ml100k(path: str, min_rating: int = 3, test_size: float = 0.2,
+                random_state: int = 16):
+    """ml-100k ``u.data`` ingest with the reference LightGCN pretrainer's
+    semantics, in numpy:
+
+      * keep ratings >= ``min_rating``;
+      * split the rows as sklearn's ``train_test_split(test_size=0.2,
+        random_state=16)`` does: the first ``ceil(test_size * n)`` rows of
+        ``np.random.RandomState(random_state).permutation(n)`` are the
+        test split, the rest the train split, in that order;
+      * encode user and item ids as their ranks among the train ids (what
+        ``LabelEncoder`` fitted on the train split does);
+      * keep the test rows whose user AND item appear in train;
+      * n_users / n_items = the distinct train ids.
+
+    Returns (train_csr [n_users, n_items], test_csr, n_users, n_items);
+    interactions are binary (a duplicate pair counts once)."""
+    with open(path) as fh:
+        raw = np.array(fh.read().split(), dtype=np.int64)
+    table = raw.reshape(-1, 4)        # user_id, item_id, rating, timestamp
+    table = table[table[:, 2] >= min_rating]
+    n = len(table)
+    n_test = int(np.ceil(test_size * n))
+    perm = np.random.RandomState(random_state).permutation(n)
+    train, test = table[perm[n_test:]], table[perm[:n_test]]
+    user_ids = np.unique(train[:, 0])
+    item_ids = np.unique(train[:, 1])
+    test = test[np.isin(test[:, 0], user_ids) & np.isin(test[:, 1], item_ids)]
+    n_users, n_items = len(user_ids), len(item_ids)
+
+    def to_csr(rows):
+        m = sp.coo_matrix(
+            (np.ones(len(rows), dtype=np.float32),
+             (np.searchsorted(user_ids, rows[:, 0]),
+              np.searchsorted(item_ids, rows[:, 1]))),
+            shape=(n_users, n_items)).tocsr()
+        m.data[:] = 1.0
+        return m
+
+    return to_csr(train), to_csr(test), n_users, n_items

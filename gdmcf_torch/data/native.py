@@ -1,13 +1,34 @@
-"""Structure-only CSR with vectorized batch assembly (numpy).
+"""Structure-only CSR with vectorized batch assembly and BPR sampling
+(numpy).
 
-Counterpart of the JAX package's ``data/native.py:NativeCSR`` for what serving
-needs: ``from_scipy``, ``gather`` and ``gather_packed``. The C++ engine of
-the JAX package is ported in a later slice; these are its numpy semantics.
+Counterpart of the JAX package's ``data/native.py:NativeCSR``:
+``from_scipy``, ``gather``, ``gather_packed`` and ``sample_bpr``. The JAX
+package runs these in a C++ engine (``data/_native/loader.cpp``); here they
+are vectorized numpy with its semantics, and ``sample_bpr`` draws the C++
+engine's triples bit for bit.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
+
+# splitmix64 (the C++ engine's sampler): the stream of batch slot k starts
+# at seed + _SLOT * (k + 1) and advances by _GAMMA before each draw
+_SLOT = np.uint64(0x632BE59BD9B4E019)
+_GAMMA = np.uint64(0x9E3779B97F4A7C15)
+_M1 = np.uint64(0xBF58476D1CE4E5B9)
+_M2 = np.uint64(0x94D049BB133111EB)
+
+
+def _splitmix64(s0: np.ndarray, j: np.ndarray) -> np.ndarray:
+    """The j-th (0-based) output of each stream s0, uint64 arrays; the
+    arithmetic wraps modulo 2^64 as in C."""
+    z = s0 + (j + np.uint64(1)) * _GAMMA
+    z = (z ^ (z >> np.uint64(30))) * _M1
+    z = (z ^ (z >> np.uint64(27))) * _M2
+    return z ^ (z >> np.uint64(31))
 
 
 class NativeCSR:
@@ -65,3 +86,57 @@ class NativeCSR:
         np.bitwise_or.at(out, (r, items >> 3),
                          np.left_shift(1, items & 7).astype(np.uint8))
         return out
+
+    def sample_bpr(self, users: np.ndarray,
+                   seed: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(pos, neg) int32 item ids for the given users: a positive drawn
+        from the user's row and a negative rejection-sampled outside it,
+        the C++ engine's triples bit for bit. Each batch slot k has its own
+        splitmix64 stream; its first draw picks the positive
+        (``indices[lo + z % deg]``), the following ones are negative
+        candidates (``z % n_item``), redrawn in rounds over the slots still
+        rejected, with membership looked up in the sorted keys
+        ``user * n_item + item``. A user with no items gets ``z % n_item``
+        for both."""
+        indptr = self.indptr
+        max_deg, keys = self._bpr_index()
+        if max_deg >= self.n_item:
+            # no negative exists for that user: rejection would never end
+            raise ValueError(
+                "BPR negative sampling impossible: some user interacted "
+                f"with all {self.n_item} items (no negatives exist)")
+        u = np.asarray(users, dtype=np.int32).astype(np.int64)
+        lo = indptr[u]
+        deg = indptr[u + 1] - lo
+        s0 = (np.uint64(seed)
+              + _SLOT * (np.arange(len(u), dtype=np.uint64) + np.uint64(1)))
+        n_item = np.uint64(self.n_item)
+        z = _splitmix64(s0, np.zeros(len(u), np.uint64))
+        has = deg > 0
+        pos = (z % n_item).astype(np.int32)
+        pos[has] = self.indices[lo[has] + (z[has] % deg[has].astype(
+            np.uint64)).astype(np.int64)]
+        neg = (_splitmix64(s0, np.ones(len(u), np.uint64))
+               % n_item).astype(np.int32)
+        todo = np.flatnonzero(has)
+        draw = np.ones(len(todo), np.uint64)
+        while len(todo):
+            cand = (_splitmix64(s0[todo], draw) % n_item).astype(np.int64)
+            key = u[todo] * self.n_item + cand
+            at = np.minimum(np.searchsorted(keys, key), len(keys) - 1)
+            taken = keys[at] == key
+            neg[todo[~taken]] = cand[~taken]
+            todo, draw = todo[taken], draw[taken] + np.uint64(1)
+        return pos, neg
+
+    def _bpr_index(self) -> Tuple[int, np.ndarray]:
+        """(the longest row, ``user * n_item + item`` of every stored cell
+        sorted), built on the first call and kept."""
+        index = getattr(self, "_bpr_cache", None)
+        if index is None:
+            deg = np.diff(self.indptr)
+            rows = np.repeat(np.arange(self.n_user, dtype=np.int64), deg)
+            index = self._bpr_cache = (
+                int(deg.max()) if self.n_user else 0,
+                np.sort(rows * self.n_item + self.indices[:len(rows)]))
+        return index

@@ -1,28 +1,49 @@
-"""LightGCN normalized adjacency and propagation.
+"""LightGCN: the normalized adjacency, propagation and BPR pretraining.
 
-Port of the propagation half of the JAX package's ``models/lightgcn.py``: with
-R the user x item interactions, N = D_u^{-1/2} R D_i^{-1/2}, one layer is
+Port of the JAX package's ``models/lightgcn.py``: with R the user x item
+interactions, N = D_u^{-1/2} R D_i^{-1/2}, one layer is
 ``u' = N @ e_item, i' = N^T @ e_user``, and the final tables are the mean
 over layers 0..K. The sparse forms run on ``ops/spmm`` (the CUDA kernel for
 CUDA tensors, one launch per product): each operand carries a row operand
 per direction, the CSR of N and that of N^T, so both directions are the
-same row gather. Pretraining and ``bpr_loss`` are not ported yet.
+same row gather, and each product is differentiable through
+``ops.spmm.spmm_op`` (its backward pass is the product in the other
+direction, one more launch).
+
+``pretrain`` is the reference pretrainer's recipe (BPR with L2 on the
+layer-0 rows, Adam, ranking evaluation with natural-log NDCG), with the
+JAX package's draws: one ``np.random.default_rng(seed)`` picks each batch's
+users and then the seed of ``NativeCSR.sample_bpr``, so at equal initial
+tables the port trains on the JAX package's triples. The Adam update is the
+port's AdamW kernel (``ops/fused_adamw``, K1) with float32 moments and no
+weight decay, which is the JAX package's Adam (b1 0.9, b2 0.999, eps 1e-8
+added after the square root).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+import warnings
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
+from gdmcf_torch import resolve_device
+from gdmcf_torch.data.native import NativeCSR
+from gdmcf_torch.models.layers import xavier_uniform
+from gdmcf_torch.ops.fused_adamw import (FusedAdamWState, fused_adamw_apply,
+                                         fused_adamw_init)
+from gdmcf_torch.ops.metrics import lightgcn_topn_metrics
 from gdmcf_torch.ops.spmm import (BlockSparse, HybridSparse, RowOperand,
-                                  degree_sort_permutation, spmm_rows,
+                                  degree_sort_permutation, spmm_op,
                                   to_block_sparse, to_hybrid)
+from gdmcf_torch.ops.topk import chunked_topk
 
 # a dense [n_user, n_item] f32 N above this many bytes switches the
-# lightGCN backbone to the hybrid sparse operand
+# lightGCN backbone and pretraining to a sparse operand, and turns off
+# pretraining's dense ranking evaluation
 _DENSE_LIMIT_BYTES = 2 << 30
 
 
@@ -103,9 +124,10 @@ def propagate_rows(e_user: torch.Tensor, e_item: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``propagate`` on the row operands of N and N^T alone (either
     format's ``fwd_rows`` and ``t_rows``), so the tiles need not be on the
-    device."""
-    return _layers(e_user, e_item, n_layers, lambda i: spmm_rows(fwd, i),
-                   lambda u: spmm_rows(t, u))
+    device. Differentiable in both tables: each product's backward pass
+    is one product on the other operand."""
+    return _layers(e_user, e_item, n_layers, lambda i: spmm_op(fwd, t, i),
+                   lambda u: spmm_op(t, fwd, u))
 
 
 def propagate_sparse(e_user: torch.Tensor, e_item: torch.Tensor,
@@ -120,3 +142,263 @@ def propagate_hybrid(e_user: torch.Tensor, e_item: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``propagate`` on the hybrid N: one launch per product on CUDA."""
     return propagate_rows(e_user, e_item, h.fwd_rows, h.t_rows, n_layers)
+
+
+# ---------------------------------------------------------------------------
+# BPR pretraining
+# ---------------------------------------------------------------------------
+
+def bpr_loss(users_emb: torch.Tensor, pos_emb: torch.Tensor,
+             neg_emb: torch.Tensor, user0: torch.Tensor, pos0: torch.Tensor,
+             neg0: torch.Tensor, batch_size: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(BPR loss, L2 term): softplus(neg - pos score) averaged, and half
+    the squared norms of the layer-0 rows over the batch size."""
+    reg = 0.5 * ((user0 ** 2).sum() + (pos0 ** 2).sum()
+                 + (neg0 ** 2).sum()) / batch_size
+    pos_scores = (users_emb * pos_emb).sum(dim=1)
+    neg_scores = (users_emb * neg_emb).sum(dim=1)
+    loss = torch.nn.functional.softplus(neg_scores - pos_scores).mean()
+    return loss, reg
+
+
+def _choose_users(rng: np.random.Generator, n_user: int,
+                  batch_size: int) -> np.ndarray:
+    """Sorted user sample (with replacement only when the population is
+    smaller than the batch), shared by both BPR samplers."""
+    if n_user < batch_size:
+        users = rng.integers(0, n_user, batch_size)
+    else:
+        users = rng.choice(n_user, batch_size, replace=False)
+    users.sort()
+    return users
+
+
+def sample_bpr_batch(rng: np.random.Generator, train_csr: sp.spmatrix,
+                     batch_size: int
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host-side (user, pos, neg) triples with rejection-sampled negatives,
+    every draw from ``rng``: the plain per-user loop. ``pretrain`` samples
+    with ``NativeCSR.sample_bpr`` instead (same semantics, other draws)."""
+    n_user, n_item = train_csr.shape
+    deg = np.diff(train_csr.indptr)
+    if deg.size and int(deg.max()) >= n_item:
+        raise ValueError(
+            "BPR negative sampling impossible: some user interacted with "
+            f"all {n_item} items (the rejection loop would never exit)")
+    users = _choose_users(rng, n_user, batch_size)
+    indptr, indices = train_csr.indptr, train_csr.indices
+    pos = np.empty(batch_size, dtype=np.int64)
+    neg = np.empty(batch_size, dtype=np.int64)
+    for k, u in enumerate(users):
+        items = indices[indptr[u]:indptr[u + 1]]
+        if len(items) == 0:
+            pos[k] = rng.integers(n_item)
+            neg[k] = rng.integers(n_item)
+            continue
+        pos[k] = rng.choice(items)
+        iset = set(items.tolist())
+        while True:
+            cand = rng.integers(n_item)
+            if cand not in iset:
+                neg[k] = cand
+                break
+    return users, pos, neg
+
+
+class LightGCNResult(NamedTuple):
+    final_user: np.ndarray
+    final_item: np.ndarray
+    initial_user: np.ndarray
+    initial_item: np.ndarray
+
+
+Propagator = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def propagator(train_csr: sp.spmatrix, n_layers: int, sparse,
+               block_size: int = 128, block_rows: Optional[int] = None,
+               device=None) -> Propagator:
+    """``prop(e0) -> (final_user, final_item)`` over the stacked table
+    ``e0 = [e_user; e_item]``, differentiable, on the operand ``sparse``
+    names: ``"hybrid"`` (tiles of ``block_rows or 8`` x ``block_size`` and
+    the COO remainder), ``True`` (tiles of ``block_rows or block_size`` x
+    ``block_size``) or ``False`` (the dense N). The sparse forms keep only
+    their two row operands on the device."""
+    dev = resolve_device(device)
+    n_user = train_csr.shape[0]
+    if sparse == "hybrid":
+        a = normalized_bipartite_hybrid(train_csr, br=block_rows or 8,
+                                        bc=block_size)
+    elif sparse:
+        a = normalized_bipartite_sparse(train_csr,
+                                        br=block_rows or block_size,
+                                        bc=block_size)
+    else:
+        n_mat = torch.from_numpy(normalized_bipartite_blocks(train_csr)).to(
+            dev)
+        return lambda e0: propagate(e0[:n_user], e0[n_user:], n_mat,
+                                    n_layers)
+    fwd, t = a.fwd_rows.to(dev), a.t_rows.to(dev)
+    return lambda e0: propagate_rows(e0[:n_user], e0[n_user:], fwd, t,
+                                     n_layers)
+
+
+def initial_table(n_rows: int, dim: int, seed: int, device=None
+                  ) -> torch.Tensor:
+    """The Xavier-uniform [n_user + n_item, dim] table ``pretrain`` starts
+    from, drawn by a CPU ``torch.Generator`` seeded with seed and then
+    moved: a seed gives the same table on every device, so a run on the
+    CPU starts where the same run on the card does."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    return xavier_uniform((n_rows, dim), gen).to(dev)
+
+
+def bpr_step(e0: torch.Tensor, opt_state: FusedAdamWState, prop: Propagator,
+             batch: torch.Tensor, n_user: int, lr: float, decay: float
+             ) -> Tuple[FusedAdamWState, torch.Tensor]:
+    """One BPR step in place on the leaf ``e0``: propagate, BPR loss plus
+    ``decay`` times the L2 term on the batch's layer-0 rows, backward, and
+    the Adam update (one AdamW kernel launch on CUDA). ``batch``: [3, B]
+    int64 (users, positive and negative items) on e0's device. Returns
+    the state and the loss, left on the device."""
+    users, pos, neg = batch
+    fu, fi = prop(e0)
+    loss, reg = bpr_loss(fu[users], fi[pos], fi[neg], e0[users],
+                         e0[n_user + pos], e0[n_user + neg], users.shape[0])
+    total = loss + decay * reg
+    (grad,) = torch.autograd.grad(total, e0)
+    opt_state = fused_adamw_apply({"e0": e0}, {"e0": grad.contiguous()},
+                                  opt_state, lr=lr)
+    return opt_state, total.detach()
+
+
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    # a copy even on the CPU: e0 is updated in place afterwards
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def pretrain(train_csr: sp.spmatrix, test_csr: sp.spmatrix,
+             n_layers: int = 3, latent_dim: int = 64, epochs: int = 30,
+             batch_size: int = 1024, lr: float = 0.005, decay: float = 1e-4,
+             k: int = 10, seed: int = 0, log=print,
+             sparse: "bool | str | None" = None, block_size: int = 128,
+             block_rows: Optional[int] = None, evaluate: bool = True,
+             steps_per_epoch: Optional[int] = None, device=None,
+             init_table: Optional[np.ndarray] = None) -> LightGCNResult:
+    """The reference pretrainer's loop: Adam and BPR, then per epoch the
+    Recall/Precision/NDCG/MAP@k evaluation; returns the four tables of
+    the epoch with the best NDCG (the reference saves them as .pt files).
+
+    ``sparse``: ``True`` propagates on the block-sparse N, ``"hybrid"`` on
+    the tile + COO remainder format, ``False`` on the dense N; ``None``
+    picks sparse once the dense [n_user, n_item] N would exceed
+    ``_DENSE_LIMIT_BYTES``. ``evaluate=False`` skips the evaluation, which
+    is turned off with a warning above that limit (the score matrix is as
+    large), and returns the final tables. ``steps_per_epoch`` defaults to
+    the reference's budget ``nnz // batch_size``.
+
+    Runs on ``cuda`` unless ``device`` says otherwise. ``init_table``: the
+    [n_user + n_item, latent_dim] table to start from (numpy, copied); by
+    default ``initial_table(..., seed)``. Dense products and the scores
+    run in float32 with TF32 off.
+    """
+    from gdmcf_torch.train.trainer import matmul_precision
+
+    if sparse not in (None, True, False, "hybrid"):
+        # any other truthy value would fall through to the block-sparse
+        # path: a misspelt format name fails instead
+        raise ValueError(f"sparse={sparse!r}: expected None, True, False, "
+                         "or 'hybrid'")
+    dev = resolve_device(device)
+    n_user, n_item = train_csr.shape
+    dense_bytes = n_user * n_item * 4
+    if sparse is None:
+        sparse = dense_bytes > _DENSE_LIMIT_BYTES
+    if evaluate and dense_bytes > _DENSE_LIMIT_BYTES:
+        warnings.warn(
+            f"pretrain: disabling the dense ranking eval at {n_user} x "
+            f"{n_item} (score matrix alone would be "
+            f"{dense_bytes / 2**30:.1f} GiB); returning final (not "
+            "best-NDCG) embeddings", stacklevel=2)
+        evaluate = False
+    prop = propagator(train_csr, n_layers, sparse, block_size, block_rows,
+                      dev)
+    shape = (n_user + n_item, latent_dim)
+    if init_table is None:
+        e0 = initial_table(shape[0], latent_dim, seed, dev)
+    else:
+        if tuple(np.shape(init_table)) != shape:
+            raise ValueError(f"init_table shape {np.shape(init_table)} != "
+                             f"{shape}")
+        e0 = torch.tensor(np.asarray(init_table, np.float32), device=dev)
+    e0.requires_grad_(True)
+    opt_state = fused_adamw_init({"e0": e0}, torch.float32)
+    rng = np.random.default_rng(seed)
+    if steps_per_epoch is None:
+        steps_per_epoch = max(int(train_csr.nnz) // batch_size, 1)
+    # BPR consumes membership, so count-valued cells binarize here
+    ncsr = NativeCSR.from_scipy(train_csr, strict=False)
+    if evaluate:
+        train_mask = torch.from_numpy(
+            train_csr.astype(np.float32).toarray() > 0).to(dev)
+        test_gt = torch.from_numpy(
+            test_csr.astype(np.float32).toarray()).to(dev)
+
+    best_ndcg, best = -1.0, None
+    with matmul_precision(tf32=False):
+        for epoch in range(epochs):
+            losses = []
+            for _ in range(steps_per_epoch):
+                users = _choose_users(rng, n_user, batch_size)
+                pos, neg = ncsr.sample_bpr(users, int(rng.integers(2 ** 62)))
+                batch = torch.from_numpy(np.stack([users, pos, neg]).astype(
+                    np.int64))
+                if dev.type == "cuda":
+                    # a copy from pageable memory would wait for the
+                    # stream: pinned and non-blocking, the host samples
+                    # the next batch while the device runs this step
+                    batch = batch.pin_memory().to(dev, non_blocking=True)
+                opt_state, loss = bpr_step(e0, opt_state, prop, batch,
+                                           n_user, lr, decay)
+                # the losses stay on the device: one fetch per epoch
+                losses.append(loss)
+            total = float(torch.stack(losses).sum())
+            if not evaluate:
+                log(f"epoch {epoch}: loss {total / steps_per_epoch:.4f}")
+                continue
+            with torch.no_grad():
+                fu, fi = prop(e0)
+                scores = (fu @ fi.T).masked_fill_(train_mask, float("-inf"))
+                _, pred = chunked_topk(scores, k)
+            # the reference pretrainer's protocol: natural-log NDCG, MAP@K,
+            # means over test users only
+            recall, precision, ndcg, map_k = lightgcn_topn_metrics(
+                test_gt, pred, k)
+            log(f"epoch {epoch}: loss {total / steps_per_epoch:.4f} "
+                f"recall@{k} {recall:.4f} precision@{k} {precision:.4f} "
+                f"ndcg@{k} {ndcg:.4f} map@{k} {map_k:.4f}")
+            if ndcg > best_ndcg:
+                best_ndcg = ndcg
+                best = LightGCNResult(_host_copy(fu), _host_copy(fi),
+                                      _host_copy(e0[:n_user]),
+                                      _host_copy(e0[n_user:]))
+        if best is None:   # evaluate=False: the final tables
+            with torch.no_grad():
+                fu, fi = prop(e0)
+            best = LightGCNResult(_host_copy(fu), _host_copy(fi),
+                                  _host_copy(e0[:n_user]),
+                                  _host_copy(e0[n_user:]))
+    return best
+
+
+def save_embeddings(result: LightGCNResult, out_dir: str) -> None:
+    """Write the four tables to ``out_dir/lightgcn_embeddings.npz`` (the
+    reference saves the same contents as .pt files)."""
+    os.makedirs(out_dir, exist_ok=True)
+    np.savez(os.path.join(out_dir, "lightgcn_embeddings.npz"),
+             final_user_Embed=result.final_user,
+             final_item_Embed=result.final_item,
+             initial_user_Embed=result.initial_user,
+             initial_item_Embed=result.initial_item)

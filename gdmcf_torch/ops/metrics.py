@@ -176,6 +176,48 @@ class MetricAccumulator:
         return _rounded(self.sums / max(self.n_users, 1))
 
 
+def _lightgcn_sums(hits: torch.Tensor, gt_count: torch.Tensor,
+                   k: int) -> torch.Tensor:
+    """Metric sums of the LightGCN pretrainer's protocol, which differs
+    from ``compute_topn_accuracy``: NDCG discounts with the natural log;
+    MAP@K = sum(cumhits[i] * hit[i] / (i + 1)) / |GT|; users without
+    ground truth count in neither numerator nor denominator. Returns [5]:
+    the sums of (recall, precision, ndcg, map) over valid users and the
+    valid-user count."""
+    hk = hits[:, :k]
+    dev = hk.device
+    disc = 1.0 / torch.log(torch.arange(k, dtype=torch.float32, device=dev)
+                           + 2.0)
+    cum_disc = torch.cumsum(disc, 0)
+    valid = (gt_count > 0).float()
+    safe_gt = torch.clamp_min(gt_count, 1.0)
+    user_hits = hk.sum(dim=1)
+    recall = user_hits / safe_gt
+    precision = user_hits / k
+    dcg = (hk * disc).sum(dim=1)
+    idcg_len = torch.clamp_max(gt_count, k).long()
+    idcg = cum_disc[torch.clamp_min(idcg_len - 1, 0)]
+    ndcg = dcg / torch.clamp_min(idcg, 1e-12)
+    ranks = torch.arange(1, k + 1, dtype=torch.float32, device=dev)
+    ap = (torch.cumsum(hk, dim=1) * hk / ranks).sum(dim=1) / safe_gt
+    return torch.stack([(recall * valid).sum(), (precision * valid).sum(),
+                        (ndcg * valid).sum(), (ap * valid).sum(),
+                        valid.sum()])
+
+
+def lightgcn_topn_metrics(gt_matrix, pred_indices,
+                          k: int) -> Tuple[float, float, float, float]:
+    """(recall, precision, ndcg, map)@k means over the users with ground
+    truth, the reference LightGCN pretrainer's ``get_metrics``. gt_matrix
+    [N, n_item] and pred_indices [N, >= k] ranked item ids, numpy or
+    tensors; computed where pred_indices lies, one fetch."""
+    hits, gt_count = _hits_and_counts(gt_matrix, pred_indices, (k,))
+    s = _lightgcn_sums(hits, gt_count, k).cpu().numpy().astype(np.float64)
+    n = max(s[4], 1.0)
+    return (float(s[0] / n), float(s[1] / n), float(s[2] / n),
+            float(s[3] / n))
+
+
 def print_results(loss, valid_result, test_result) -> None:
     """Human-readable metric lines (the reference's format)."""
     if loss is not None:

@@ -22,6 +22,13 @@ kernel (counted as ``spmm_rows_fwd`` or ``spmm_rows_t``) and raises if it
 cannot; for CPU tensors it runs ``spmm_rows_reference``, the plain gather,
 scale and ``index_add_`` over the same operand and segments.
 
+The differentiable product is ``spmm_op`` (the JAX package's ``spmm_op``
+custom VJP): a ``torch.autograd.Function`` over the pair of row operands of
+one matrix, whose backward pass is the same product in the other direction
+on the other operand, ``A^T g``. It runs on both devices, so the CPU takes
+the same backward structure as the card. ``spmm``, ``hybrid_spmm`` and the
+propagations of ``models/lightgcn`` go through it.
+
 The kernel is compiled at first use with ``nvcc`` from ``csrc/spmm.cu``
 into ``gdmcf_torch/_build/`` and loaded with ctypes.
 """
@@ -433,25 +440,70 @@ def spmm_rows(op: RowOperand, x: torch.Tensor) -> torch.Tensor:
     """``y = op @ x``, f32 accumulation, ``op.n_out`` rows. x may hold
     fewer rows than the operand's columns (the missing rows read as zero)
     or more (never read). A CUDA x runs the kernel, a CPU x the plain
-    version."""
+    version. Not differentiable: an x that needs a gradient raises (the
+    differentiable product is ``spmm_op``)."""
     if op.device != x.device:
         raise ValueError(f"operand on {op.device}, x on {x.device}")
+    if x.requires_grad and torch.is_grad_enabled():
+        raise ValueError("x requires grad: spmm_rows has no backward pass; "
+                         "use spmm_op(op, op_opposite, x)")
     x = x.float()
     if x.is_cuda:
         return _launch(op, x)
     return spmm_rows_reference(op, x)
 
 
+class _SpmmOp(torch.autograd.Function):
+    """y = op @ x; the gradient of x is op_opposite @ g, the same kernel
+    on the operand of the other direction. The graph gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, op, op_opposite):
+        ctx.op_opposite = op_opposite
+        ctx.x_shape, ctx.x_dtype = x.shape, x.dtype
+        return spmm_rows(op, x)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        # g has the padded output rows of op (their cotangents are zero);
+        # the result has op_opposite's padded rows: cut (or, for an x with
+        # rows the product never read, pad) it to x's rows
+        gx = spmm_rows(ctx.op_opposite, g)
+        n_x = ctx.x_shape[0]
+        if gx.shape[0] >= n_x:
+            gx = gx[:n_x]
+        else:
+            gx = torch.cat([gx, gx.new_zeros((n_x - gx.shape[0],
+                                              gx.shape[1]))])
+        return gx.to(ctx.x_dtype), None, None
+
+
+def spmm_op(op: RowOperand, op_opposite: RowOperand,
+            x: torch.Tensor) -> torch.Tensor:
+    """Differentiable ``y = op @ x``: ``op`` and ``op_opposite`` are the
+    two row operands of one matrix (``fwd_rows``/``t_rows`` of a
+    ``BlockSparse`` or ``HybridSparse``, either way round). The forward
+    pass is one ``spmm_rows``, the backward pass one ``spmm_rows`` on
+    ``op_opposite``: on CUDA each launches the kernel or raises."""
+    if op.transpose == op_opposite.transpose or op.device != op_opposite.device:
+        raise ValueError("op_opposite must be the other direction's operand "
+                         "on the same device")
+    return _SpmmOp.apply(x, op, op_opposite)
+
+
 def spmm(a: BlockSparse, x: torch.Tensor,
          transpose: bool = False) -> torch.Tensor:
-    """``y = A @ x`` (or ``A^T @ x``) over the tiles' nonzeros.
+    """``y = A @ x`` (or ``A^T @ x``) over the tiles' nonzeros,
+    differentiable in x.
 
     x: [A.shape[1] (or [0] for transpose), D]; fewer rows are accepted (the
     missing rows read as zero) and extra rows are dropped. Output rows are
     padded to the tile grid; slice to the logical size at the call site. A
     CUDA operand runs the kernel, a CPU operand the plain version.
     """
-    return spmm_rows(a.t_rows if transpose else a.fwd_rows, x)
+    ops = (a.t_rows, a.fwd_rows) if transpose else (a.fwd_rows, a.t_rows)
+    return spmm_op(*ops, x)
 
 
 # ---------------------------------------------------------------------------
@@ -525,10 +577,12 @@ def to_hybrid(mat: sp.spmatrix, br: int = 8, bc: int = 128,
 
 def hybrid_spmm(h: HybridSparse, x: torch.Tensor,
                 transpose: bool = False) -> torch.Tensor:
-    """``y = A @ x`` (or ``A^T @ x``) over all of the hybrid's nonzeros:
-    one kernel launch on CUDA, the plain version on the CPU. Output rows
-    are padded to the tile grid."""
-    return spmm_rows(h.t_rows if transpose else h.fwd_rows, x)
+    """``y = A @ x`` (or ``A^T @ x``) over all of the hybrid's nonzeros,
+    differentiable in x: one kernel launch on CUDA (and one in the
+    backward pass), the plain version on the CPU. Output rows are padded
+    to the tile grid."""
+    ops = (h.t_rows, h.fwd_rows) if transpose else (h.fwd_rows, h.t_rows)
+    return spmm_op(*ops, x)
 
 
 def hybrid_spmm_reference(h: HybridSparse, x: torch.Tensor,

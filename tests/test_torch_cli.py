@@ -1,6 +1,7 @@
-"""The port's training CLI and serving from its checkpoints, on the CPU at a
-tiny size. Serving from a checkpoint must return exactly the ids of the
-in-memory trainer it was saved from (same users, same generator seed)."""
+"""The port's training and pretraining CLIs and serving from its
+checkpoints, on the CPU at a tiny size. Serving from a checkpoint must
+return exactly the ids of the in-memory trainer it was saved from (same
+users, same generator seed)."""
 
 import json
 import os
@@ -11,7 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
-from gdmcf_torch import cli  # noqa: E402
+from gdmcf_torch import cli, pretrain_cli  # noqa: E402
 from gdmcf_torch.config import parse_args  # noqa: E402
 from gdmcf_torch.data.loader import (data_load_dir,  # noqa: E402
                                      generate_synthetic_dataset)
@@ -103,3 +104,44 @@ def test_serving_from_a_checkpoint_returns_the_trainers_ids(tmp_path,
     with pytest.raises(FileNotFoundError, match="does not exist"):
         build_recommender(cfg, str(tmp_path / "typo"), train, n_user,
                           n_item, **kw)
+
+
+def test_pretrain_cli_writes_the_embeddings_on_the_cpu(tmp_path, capsys):
+    generate_synthetic_dataset(str(tmp_path / "data"), **SMALL)
+    train, _, _, n_user, n_item = data_load_dir(str(tmp_path / "data"))
+    out = tmp_path / "emb"
+    pretrain_cli.main(["--device", "cpu", "--data_path",
+                       str(tmp_path / "data"), "--epochs", "2",
+                       "--batch_size", "32", "--latent_dim", "8",
+                       "--n_layers", "2", "--out_dir", str(out)])
+    text = capsys.readouterr().out
+    assert f"{n_user} users x {n_item} items on cpu" in text
+    assert text.count("ndcg@10") == 2
+    with np.load(out / "lightgcn_embeddings.npz") as z:
+        shapes = {k: z[k].shape for k in z.files}
+        assert all(np.isfinite(z[k]).all() for k in z.files)
+    assert shapes == {"final_user_Embed": (n_user, 8),
+                      "final_item_Embed": (n_item, 8),
+                      "initial_user_Embed": (n_user, 8),
+                      "initial_item_Embed": (n_item, 8)}
+
+
+def test_pretrain_cli_generates_missing_data_and_needs_a_card_by_default(
+        tmp_path, monkeypatch):
+    made = []
+
+    def small(path):
+        made.append(path)
+        return generate_synthetic_dataset(path, **SMALL)
+
+    monkeypatch.setattr("gdmcf_torch.data.loader.generate_synthetic_dataset",
+                        small)
+    flags = ["--data_path", str(tmp_path / "fresh"), "--epochs", "1",
+             "--latent_dim", "4", "--n_layers", "1", "--out_dir",
+             str(tmp_path / "emb")]
+    pretrain_cli.main(flags + ["--device", "cpu"])
+    assert made == [str(tmp_path / "fresh")]
+    assert (tmp_path / "emb" / "lightgcn_embeddings.npz").exists()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain_cli.main(flags)

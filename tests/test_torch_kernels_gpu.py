@@ -8,7 +8,11 @@ runs without the suite's conftest:
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
 
 SpMM tolerance rtol 1e-4 / atol 1e-5, TF32 off on the plain side: the
-kernel sums the same float32 terms in another order. AdamW tolerance:
+kernel sums the same float32 terms in another order. The same tolerance
+holds the gradients through the differentiable product (``spmm_op``, whose
+backward pass is the kernel in the other direction) against the plain
+versions and dense autograd; their plain sums run with deterministic
+``index_add_``. AdamW tolerance:
 ``fused_adamw.update_bounds`` (one ulp of a moment's storage type plus a
 few float32 ulps of its terms, from fused multiply-adds).
 """
@@ -128,6 +132,82 @@ def test_hybrid_propagation_matches_plain(cuda):
                         lambda x: T.hybrid_spmm_reference(h, x, True))
     torch.testing.assert_close(u, up, **TOL)
     torch.testing.assert_close(i, ip, **TOL)
+
+
+def lgn_grad(prop, e0, w_u, w_i):
+    e = e0.clone().requires_grad_(True)
+    n_user = w_u.shape[0]
+    fu, fi = prop(e[:n_user], e[n_user:])
+    return torch.autograd.grad((fu * w_u).sum() + (fi * w_i).sum(), e)[0]
+
+
+@pytest.mark.parametrize("d", [64, 50])
+def test_product_backward_matches_plain_and_dense(cuda, d):
+    """Gradients of a loss over both propagated tables (3 layers): the
+    kernel both ways against the plain row gather, the plain tiles + COO
+    and dense autograd; 3 + 3 launches forward and 3 + 3 backward; two
+    backward passes bitwise equal."""
+    r = sp.random(600, 900, density=0.02,
+                  random_state=np.random.RandomState(5), format="csr",
+                  dtype=np.float32)
+    r.data[:] = 1.0
+    h = TG.normalized_bipartite_hybrid(r, min_fill=32).to(cuda)
+    assert h.rem_vals.numel() > 1000
+    dense = torch.from_numpy(TG.normalized_bipartite_blocks(r)).to(cuda)
+    e0, w_u, w_i = (rand_x(s, n, d, cuda)
+                    for s, n in ((6, 1500), (7, 600), (8, 900)))
+    T.reset_launch_counts()
+    g = lgn_grad(lambda u, i: TG.propagate_hybrid(u, i, h, 3), e0, w_u, w_i)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES == {"spmm_rows_fwd": 6, "spmm_rows_t": 6}
+    again = lgn_grad(lambda u, i: TG.propagate_hybrid(u, i, h, 3), e0, w_u,
+                     w_i)
+    torch.cuda.synchronize()
+    assert torch.equal(g, again), "two backward passes differ"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        rows = lgn_grad(lambda u, i: TG._layers(
+            u, i, 3, lambda x: T.spmm_rows_reference(h.fwd_rows, x),
+            lambda x: T.spmm_rows_reference(h.t_rows, x)), e0, w_u, w_i)
+        tiles = lgn_grad(lambda u, i: TG._layers(
+            u, i, 3, lambda x: T.hybrid_spmm_reference(h, x, False),
+            lambda x: T.hybrid_spmm_reference(h, x, True)), e0, w_u, w_i)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    full = lgn_grad(lambda u, i: TG.propagate(u, i, dense, 3), e0, w_u, w_i)
+    for want in (rows, tiles, full):
+        torch.testing.assert_close(g, want, **TOL)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_spmm_op_backward_launches_the_other_direction(cuda, transpose):
+    """x shorter than the operand's columns: the forward launch reads the
+    missing rows as zero, the backward launch (one, on the other operand)
+    gives x's rows only."""
+    a = T.to_block_sparse(matrix(9, 1000, 700, 0.03, 8, 128), 8, 128)
+    a = a.to(cuda)
+    n_x = (1000 if transpose else 700) - 5
+    x = rand_x(10, n_x, 64, cuda).requires_grad_(True)
+    w = rand_x(11, 1024, 64, cuda)
+    T.reset_launch_counts()
+    y = T.spmm(a, x, transpose)
+    (y * w[:y.shape[0]]).sum().backward()
+    torch.cuda.synchronize()
+    assert T.LAUNCHES == {"spmm_rows_fwd": 1, "spmm_rows_t": 1}
+    back = a.fwd_rows if transpose else a.t_rows
+    want = T.spmm_rows_reference(back, w[:y.shape[0]])[:n_x]
+    assert x.grad.shape == x.shape
+    torch.testing.assert_close(x.grad, want, **TOL)
+    with pytest.raises(ValueError, match="spmm_op"):
+        T.spmm_rows(a.fwd_rows if not transpose else a.t_rows, x)
+
+
+def test_pretrain_initial_table_is_the_cpu_one(cuda):
+    """A seed gives pretrain the same starting table on the card as on the
+    CPU."""
+    want = TG.initial_table(1500, 64, 7, "cpu")
+    got = TG.initial_table(1500, 64, 7, cuda)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
 
 
 def test_cuda_operand_refuses_instead_of_falling_back(cuda):

@@ -29,7 +29,28 @@ def test_port_imports_no_jax_and_no_reference_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert len(MODULES) >= 15
+    assert len(MODULES) >= 15 and "gdmcf_torch.pretrain_cli" in MODULES
+
+
+def test_pretraining_names_import_without_jax():
+    code = ("import sys\n"
+            "from gdmcf_torch.models.lightgcn import (bpr_loss, bpr_step, "
+            "pretrain, propagator, initial_table, sample_bpr_batch, "
+            "save_embeddings, LightGCNResult)\n"
+            "from gdmcf_torch.ops.spmm import spmm_op\n"
+            "from gdmcf_torch.ops.metrics import lightgcn_topn_metrics\n"
+            "from gdmcf_torch.data.loader import generate_ml100k_csv, "
+            "load_ml100k\n"
+            "from gdmcf_torch.data.native import NativeCSR\n"
+            "from gdmcf_torch.pretrain_cli import main\n"
+            "assert callable(NativeCSR.sample_bpr)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'gdmcf_tpu', 'pandas', 'sklearn')))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 @pytest.mark.parametrize("path", ["gdmcf_torch", "chip_smoke.py"])
@@ -74,6 +95,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         Trainer(cfg, 3, 4, train_csr=csr)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_recommender(cfg, None, csr, 3, 4)
+    from gdmcf_torch.models.lightgcn import pretrain
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain(csr, csr, epochs=1, latent_dim=4)
     # an explicit CPU request runs
     rec = build_recommender(cfg, None, csr, 3, 4, device="cpu",
                             serve_batch=4, k_max=2)

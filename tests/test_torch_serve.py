@@ -89,9 +89,9 @@ def test_port_used_the_hybrid_operand():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(TG, "_DENSE_LIMIT_BYTES", 0)
         calls = []
-        real = TG.spmm_rows
-        mp.setattr(TG, "spmm_rows",
-                   lambda op, x: calls.append(op) or real(op, x))
+        real = TG.spmm_op
+        mp.setattr(TG, "spmm_op", lambda op, op_opposite, x:
+                   calls.append(op) or real(op, op_opposite, x))
         TTrainer(TConfig(device="cpu", **RECIPE), N_USER, N_ITEM,
                  train_csr=train)
     # 2 layers x 2 directions
