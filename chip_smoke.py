@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive gdmcf_torch's serving, training and LightGCN pretraining paths on
-one NVIDIA GPU and check them.
+"""Drive gdmcf_torch's serving, training and LightGCN pretraining paths, and
+every denoiser backbone's golden gate, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                  # from the root of a checkout
     python3 chip_smoke.py --profile FILE   # also writes torch.profiler
@@ -93,7 +93,31 @@ Phases (any failure exits non-zero):
      "parity": true (written to chiprun_out/torch_lightgcn_parity.json);
  14. one `python -m gdmcf_torch.pretrain_cli` subprocess on cuda over the
      golden dataset, 2 epochs, checked for the .npz's four tables;
- 15. the kernel JSON line, the card's name and power limit, and as the
+ 15. DNN at OneHotMatrix 0 at the Amazon-Book width: configs/
+     amazonOneEmbGcn.yaml with backbone DNN (194,561,875 trainable
+     elements in 6 tensors) over the graph of phases 3-12, one train_epoch
+     of 272 steps checked for finite losses, every parameter moved and
+     exactly 6 AdamW launches a step; one more step held leaf by leaf
+     against adamw_reference; train-step p50/p90; a Recommender over the
+     trained Trainer with the request checks and request p50/p90; peak
+     memory;
+ 16. the backbone golden gates, 3 seeds each of Trainer.fit judged by the
+     unchanged benchmarks/golden_parity.py (every one must read "parity":
+     true; AdamW launches one per trainable tensor per step): on the
+     phase-8 dataset (lr 1e-5, batch 1024) G1 DNNOneHotEmbedding, G2
+     DNNOneHot and G3 DNNOneHotEmbedding with mean_type eps; on
+     ROUND3_GATE_SET (1200 x 1000; lr 1e-4, batch 400) G4 DNN at
+     OneHotMatrix 0 (against the reference's and the JAX package's runs in
+     docs/parity_data/jax_oh0.json, pooled), G5 DNNCat, G6 DNNOneHotEmbedding_conti, G7
+     DNNOneHotTransformer (60 epochs, a 5-seed reference band), G8
+     DNNOneHotEmbedding at sampling_steps 2 (100 epochs), G9 DNN at
+     OneHotMatrix 1 (tail loss against the reference, final R@20/N@20
+     against the JAX package's runs in docs/parity_data/jax_oh1.json,
+     split per seed) and DNNOneHotEmbeddingGCN_conti; on AMAZON_GATE_SET
+     the Amazon recipe (flagship, batch 400, dims [1024], lr 5e-5,
+     noise_scale 1e-4, 120 epochs, 1,200 users); each written to
+     chiprun_out/torch_<gate>.json;
+ 17. the kernel JSON line, the card's name and power limit, and as the
      last line {"ok": true, "device": {...}}.
 """
 
@@ -128,6 +152,52 @@ PRETRAIN_BATCH = 1024
 PRETRAIN_STEPS = 2_127         # nnz // batch on the graph of phases 3-9
 LGN_GATE_SEEDS = (0, 1, 2)
 LGN_GATE_EPOCHS = 30
+DNN_PARAMS = 194_561_875       # DNN's trainable elements at that width
+# generate_synthetic_dataset's arguments for the 1200 x 1000 set of the
+# round-3 backbone gates (docs/parity_data/ref_{oh0,oh1,DNNCat,...}_s*.json
+# name it only by its size and data seed 0); avg_degree 15 is settled by
+# the loss comparison in PERF.md section 4
+ROUND3_GATE_SET = dict(n_user=1200, n_item=1000, avg_degree=15, seed=0)
+# the Amazon-shaped set of ref_amazon_s*.json (capped at 1,200 users)
+AMAZON_GATE_SET = dict(n_user=4000, n_item=1500, avg_degree=9, seed=7)
+ROUND3 = dict(lr=1e-4, batch_size=400, dims=[1000])
+# phase 16: (label, data set, golden_config overrides, epochs, reference
+# runs, the JAX package's recorded runs and what they judge); the labels
+# name chiprun_out/torch_<label>.json. "pooled": the band spans the
+# reference's and the JAX package's runs together (G4: the reference's
+# three seeds span 1.3% of its tail loss while the JAX package's own
+# seeds spread wider, see PERF.md section 6, PR 6); "finals": final
+# R@20/N@20 against the JAX package alone (G9: the reference's OneHotMatrix
+# 1 recall is torch heap-order tie noise, docs/PARITY.md)
+BACKBONE_GATES = (
+    ("G1_DNNOneHotEmbedding", "golden", dict(backbone="DNNOneHotEmbedding"),
+     150, "ref_parity_s*.json", None),
+    ("G2_DNNOneHot", "golden", dict(backbone="DNNOneHot"), 150,
+     "ref_onehot_s*.json", None),
+    ("G3_eps", "golden", dict(backbone="DNNOneHotEmbedding", mean_type="eps"),
+     150, "ref_eps_s*.json", None),
+    ("G4_oh0", "round3", dict(backbone="DNN", OneHotMatrix=0, **ROUND3), 150,
+     "ref_oh0_s*.json", ("jax_oh0.json", "pooled")),
+    ("G5_DNNCat", "round3", dict(backbone="DNNCat", **ROUND3), 150,
+     "ref_DNNCat_s*.json", None),
+    ("G6_DNNOneHotEmbedding_conti", "round3",
+     dict(backbone="DNNOneHotEmbedding_conti", **ROUND3), 150,
+     "ref_DNNOneHotEmbedding_conti_s*.json", None),
+    ("G7_DNNOneHotTransformer", "round3",
+     dict(backbone="DNNOneHotTransformer", **ROUND3), 60,
+     "ref_DNNOneHotTransformer_s*.json", None),
+    ("G8_ss2", "round3",
+     dict(backbone="DNNOneHotEmbedding", sampling_steps=2, **ROUND3), 100,
+     "ref_ss2_s*.json", None),
+    ("G9_oh1", "round3", dict(backbone="DNN", OneHotMatrix=1, **ROUND3), 150,
+     "ref_oh1_s*.json", ("jax_oh1.json", "finals")),
+    ("amazon", "amazon", dict(batch_size=400, dims=[1024], lr=5e-5,
+                              noise_scale=1e-4, n_user_cap=1200), 120,
+     "ref_amazon_s*.json", None),
+    ("DNNOneHotEmbeddingGCN_conti", "round3",
+     dict(backbone="DNNOneHotEmbeddingGCN_conti", **ROUND3), 150,
+     "ref_DNNOneHotEmbeddingGCN_conti_s*.json", None),
+)
 
 
 def log(*a):
@@ -634,11 +704,68 @@ def adamw_phase(FA, torch):
     return worst
 
 
+def train_stream(dataset, batch_size, seed=1):
+    """Packed training batches of ``dataset``, epoch after epoch."""
+    from gdmcf_torch.data.loader import epoch_batches
+    while True:
+        yield from epoch_batches(dataset, batch_size,
+                                 np.random.default_rng(seed), packed=True)
+        seed += 1
+
+
+def checked_step(trainer, state, x, idx, torch, label):
+    """One more train step, its AdamW update held leaf by leaf against
+    adamw_reference from clones taken before it; returns the largest error
+    and (the clones of p, mu and nu, the grads, the count before)."""
+    from gdmcf_torch.ops import fused_adamw as FA
+    cfg = trainer.cfg
+    loss, grads, new_lt = trainer.loss_and_grads(
+        state, torch.from_numpy(x), torch.from_numpy(idx))
+    opt = state.opt_state
+    p0 = {k: p.detach().clone() for k, p in state.params.items()}
+    mu0 = {k: m.clone() for k, m in opt.mu.items()}
+    nu0 = {k: m.clone() for k, m in opt.nu.items()}
+    count0 = opt.count.clone()
+    c = FA.step_scalars(count0 + 1, cfg.lr)
+    trainer.apply_grads(state, grads, new_lt)
+    torch.cuda.synchronize()
+    step_err, over = 0.0, 0
+    for k, p in state.params.items():
+        args_k = (p0[k], grads[k], mu0[k], nu0[k], c)
+        want = FA.adamw_reference(*args_k, wd=cfg.weight_decay)
+        bounds = FA.update_bounds(*args_k, wd=cfg.weight_decay)
+        e, o = leaf_errors((p, state.opt_state.mu[k], state.opt_state.nu[k]),
+                           want, bounds)
+        step_err, over = max(step_err, e), over + o
+        del want, bounds
+    log(f"{label} step {state.step}: loss {loss.item():.6e}; AdamW kernel "
+        f"vs plain over all {len(p0)} tensors: max abs err {step_err:.3e}, "
+        f"{over} over update_bounds")
+    assert over == 0 and bool(torch.isfinite(loss))
+    return step_err, (p0, mu0, nu0, grads, count0)
+
+
+def step_times(trainer, state, batches, torch):
+    """Train-step p50 and p90 (ms) over 20 steps after 5 warm-up ones;
+    batches are assembled first, so a step's time includes the
+    host->device copy of the packed batch and the unpack."""
+    pre = [next(batches) for _ in range(25)]
+    times = []
+    for x, idx in pre:
+        xt, it = torch.from_numpy(x), torch.from_numpy(idx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(state, xt, it)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times = times[5:]
+    return float(np.percentile(times, 50)), float(np.percentile(times, 90))
+
+
 def flagship_train(args, root, card, torch, csr, worst):
     """Phase 6: one epoch of the flagship at full width, the AdamW check
     on a further step, and the timings. Returns (trainer, kernel entry)."""
     from gdmcf_torch.config import load_config
-    from gdmcf_torch.data.loader import epoch_batches
     from gdmcf_torch.data.native import NativeCSR
     from gdmcf_torch.ops import fused_adamw as FA
     from gdmcf_torch.ops import spmm as S
@@ -683,58 +810,20 @@ def flagship_train(args, root, card, torch, csr, worst):
     del before
 
     # one more step, its update held leaf by leaf against the plain version
-    def stream(seed=1):
-        while True:
-            yield from epoch_batches(dataset, cfg.batch_size,
-                                     np.random.default_rng(seed), packed=True)
-            seed += 1
-    batches = stream()
-    x, idx = next(batches)
-    loss, grads, new_lt = trainer.loss_and_grads(
-        state, torch.from_numpy(x), torch.from_numpy(idx))
-    opt = state.opt_state
-    p0 = {k: p.detach().clone() for k, p in state.params.items()}
-    mu0 = {k: m.clone() for k, m in opt.mu.items()}
-    nu0 = {k: m.clone() for k, m in opt.nu.items()}
-    c = FA.step_scalars(opt.count + 1, cfg.lr)
-    trainer.apply_grads(state, grads, new_lt)
-    torch.cuda.synchronize()
-    step_err, over = 0.0, 0
-    for k, p in state.params.items():
-        args_k = (p0[k], grads[k], mu0[k], nu0[k], c)
-        want = FA.adamw_reference(*args_k, wd=cfg.weight_decay)
-        bounds = FA.update_bounds(*args_k, wd=cfg.weight_decay)
-        e, o = leaf_errors((p, state.opt_state.mu[k], state.opt_state.nu[k]),
-                           want, bounds)
-        step_err, over = max(step_err, e), over + o
-        del want, bounds
-    log(f"flagship step {state.step}: loss {loss.item():.6e}; AdamW kernel "
-        f"vs plain over all {n_leaves} tensors: max abs err {step_err:.3e}, "
-        f"{over} over update_bounds")
-    assert over == 0 and bool(torch.isfinite(loss))
+    batches = train_stream(dataset, cfg.batch_size)
+    step_err, (p0, mu0, nu0, grads, count0) = checked_step(
+        trainer, state, *next(batches), torch, "flagship")
     worst = max(worst, step_err)
 
-    # train-step times: batches assembled first, the step times include
-    # the host->device copy of the packed batch and the unpack
-    pre = [next(batches) for _ in range(25)]
-    times = []
-    for x, idx in pre:
-        xt, it = torch.from_numpy(x), torch.from_numpy(idx)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer.train_step(state, xt, it)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    times = times[5:]
-    p50 = float(np.percentile(times, 50))
+    p50, p90 = step_times(trainer, state, batches, torch)
     log(f"flagship train step (batch {cfg.batch_size}): p50 {p50:.3f} ms, "
-        f"p90 {float(np.percentile(times, 90)):.3f} ms over {len(times)} "
-        f"steps, {cfg.batch_size / p50 * 1e3:.1f} examples/s; matmul work "
+        f"p90 {p90:.3f} ms over 20 steps, "
+        f"{cfg.batch_size / p50 * 1e3:.1f} examples/s; matmul work "
         f"{flagship_matmul_flops(cfg, N_ITEM, cfg.batch_size, True):.4e} "
         f"flop per step from shapes [{card}]")
 
     # one AdamW pass over every trainable tensor, on the clones
-    st0 = FA.FusedAdamWState(count=opt.count.clone(), mu=mu0, nu=nu0)
+    st0 = FA.FusedAdamWState(count=count0, mu=mu0, nu=nu0)
     pass_ms = cuda_ms(lambda: FA.fused_adamw_apply(p0, grads, st0,
                                                    lr=cfg.lr), iters=10,
                       warmup=2)
@@ -825,25 +914,42 @@ class Collector:
             [float(v) for v in group] for group in results]
 
 
-def golden_phase(root, card, torch, data_dir):
-    """Phase 8: 3 seeds x 150 epochs of the flagship recipe through
-    Trainer.fit, judged by benchmarks/golden_parity.py."""
+def golden_parity(root, ours, refs):
+    """The verdict of the unchanged benchmarks/golden_parity.py."""
+    judge = subprocess.run(
+        [sys.executable, os.path.join(root, "benchmarks", "golden_parity.py"),
+         "--ref", *refs, "--ours", ours],
+        capture_output=True, text=True, check=True, timeout=120)
+    return json.loads(judge.stdout)
+
+
+def parity_refs(root, pattern):
+    refs = sorted(glob.glob(os.path.join(root, "docs", "parity_data",
+                                         pattern)))
+    assert len(refs) >= 3, (pattern, refs)
+    return refs
+
+
+def run_gate(root, card, torch, label, data_dir, epochs, cfg_kw):
+    """GOLDEN_SEEDS x ``epochs`` of Trainer.fit at golden_config(seed,
+    epochs, **cfg_kw) on the dataset in ``data_dir``, written to
+    chiprun_out/torch_<label>.json in parity_run.py's JSON shape (fit's
+    metric lines to torch_<label>_fit.log); every step launches K1 once per
+    trainable tensor. Returns (the JSON's path, the K1 launches)."""
     from gdmcf_torch.data.loader import data_load_dir
     from gdmcf_torch.ops import fused_adamw as FA
     from gdmcf_torch.train.trainer import Trainer
 
     train, valid, test, n_user, n_item = data_load_dir(data_dir)
-    log(f"golden data: generate_synthetic_dataset(seed=0): {n_user} users x "
-        f"{n_item} items, {train.nnz} train / {valid.nnz} valid / "
-        f"{test.nnz} test edges; n_user_cap 3000")
     out_dir = os.path.join(root, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    fit_log = os.path.join(out_dir, "torch_flagship_fit.log")
+    fit_log = os.path.join(out_dir, f"torch_{label}_fit.log")
     open(fit_log, "w").close()
     runs, launches = [], 0
     for seed in GOLDEN_SEEDS:
-        cfg = golden_config(seed)
-        trainer = Trainer(cfg, min(n_user, cfg.n_user_cap), n_item)
+        cfg = golden_config(seed, epochs, **cfg_kw)
+        n_rows = min(n_user, cfg.n_user_cap)
+        trainer = Trainer(cfg, n_rows, n_item)
         col = Collector()
         FA.reset_launch_counts()
         torch.cuda.synchronize()
@@ -856,17 +962,20 @@ def golden_phase(root, card, torch, data_dir):
         elapsed = time.perf_counter() - t0
         n_leaves = len(state.params)
         got = FA.LAUNCHES["fused_adamw"]
-        assert got == n_leaves * state.step == 13 * 2 * GOLDEN_EPOCHS, got
+        assert state.step == epochs * (n_rows // cfg.batch_size), state.step
+        assert got == n_leaves * state.step, (got, n_leaves, state.step)
         launches += got
-        assert len(col.losses) == GOLDEN_EPOCHS
-        assert all(np.isfinite(col.losses)), "a golden loss is not finite"
+        assert len(col.losses) == epochs
+        assert all(np.isfinite(col.losses)), f"a {label} loss is not finite"
         last = col.evals[max(col.evals)]["test"]
-        tail = float(np.mean(col.losses[-GOLDEN_EPOCHS // 4:]))
-        log(f"golden seed {seed}: {GOLDEN_EPOCHS} epochs, {state.step} steps "
-            f"in {elapsed:.2f} s ({elapsed / GOLDEN_EPOCHS * 1e3:.1f} ms per "
-            f"epoch with the evaluations); final test R@20 {last[1][1]} "
-            f"N@20 {last[2][1]}, tail loss {tail:.4f}; fused_adamw launches "
-            f"{got} = {n_leaves} x {state.step} steps [{card}]")
+        tail = float(np.mean(col.losses[-epochs // 4:]))
+        log(f"{label} seed {seed}: {cfg.backbone} OneHotMatrix "
+            f"{cfg.OneHotMatrix}, {n_rows} x {n_item}, {epochs} epochs, "
+            f"{state.step} steps in {elapsed:.2f} s ({elapsed / epochs * 1e3:.1f}"
+            f" ms per epoch with the evaluations); final test R@20 "
+            f"{last[1][1]} N@20 {last[2][1]}, tail loss {tail:.4f}; "
+            f"fused_adamw launches {got} = {n_leaves} x {state.step} steps "
+            f"[{card}]")
         runs.append({
             "seed": seed, "losses": col.losses,
             "evals": [{"epoch": e, **ev} for e, ev in sorted(col.evals.items())],
@@ -876,24 +985,33 @@ def golden_phase(root, card, torch, data_dir):
         del trainer, state
         gc.collect()
         torch.cuda.empty_cache()
-    ours = os.path.join(out_dir, "torch_flagship.json")
+    ours = os.path.join(out_dir, f"torch_{label}.json")
     with open(ours, "w") as fh:
-        json.dump({"config": {"backbone": "DNNOneHotEmbeddingGCN",
-                              "epochs": GOLDEN_EPOCHS,
-                              "seeds": list(GOLDEN_SEEDS), "device": card},
+        json.dump({"config": dict(cfg_kw, backbone=cfg.backbone,
+                                  epochs=epochs,
+                                  seeds=list(GOLDEN_SEEDS), device=card),
                    "runs": runs}, fh)
-    refs = sorted(glob.glob(os.path.join(root, "docs", "parity_data",
-                                         "ref_flagship_s*.json")))
-    assert len(refs) == 3, refs
-    judge = subprocess.run(
-        [sys.executable, os.path.join(root, "benchmarks", "golden_parity.py"),
-         "--ref", *refs, "--ours", ours],
-        capture_output=True, text=True, check=True, timeout=120)
-    verdict = json.loads(judge.stdout)
+    return ours, launches
+
+
+def golden_phase(root, card, torch, data_dir):
+    """Phase 8: 3 seeds x 150 epochs of the flagship recipe through
+    Trainer.fit, judged by benchmarks/golden_parity.py."""
+    from gdmcf_torch.data.loader import data_load_dir
+
+    train, valid, test, n_user, n_item = data_load_dir(data_dir)
+    log(f"golden data: generate_synthetic_dataset(seed=0): {n_user} users x "
+        f"{n_item} items, {train.nnz} train / {valid.nnz} valid / "
+        f"{test.nnz} test edges; n_user_cap 3000")
+    ours, launches = run_gate(root, card, torch, "flagship", data_dir,
+                              GOLDEN_EPOCHS, {})
+    assert launches == len(GOLDEN_SEEDS) * 13 * 2 * GOLDEN_EPOCHS, launches
+    verdict = golden_parity(root, ours, parity_refs(root,
+                                                    "ref_flagship_s*.json"))
     log("golden_parity.py: " + json.dumps(verdict))
     assert verdict["parity"] is True, "the flagship golden gate failed"
-    log(f"golden gate: parity true over {len(runs)} seeds x {GOLDEN_EPOCHS} "
-        f"epochs; written to {ours}, fit's lines to {fit_log}")
+    log(f"golden gate: parity true over {len(GOLDEN_SEEDS)} seeds x "
+        f"{GOLDEN_EPOCHS} epochs; written to {ours}")
     return launches
 
 
@@ -1529,6 +1647,171 @@ def pretrain_cli_phase(root, data_dir):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def dnn_matmul_flops(cfg, n_item: int, batch: int, train: bool):
+    """Matmul flops of one DNN forward (``train``: forward and backward) at
+    ``batch``, from the shapes: in_layers over [x || emb], then
+    out_layers. The first layer's input needs no gradient."""
+    ins = [n_item + cfg.emb_size] + cfg.in_dims(n_item)[1:]
+    outs = cfg.out_dims(n_item)
+    towers = sum(2 * batch * a * b for a, b in zip(ins[:-1], ins[1:]))
+    head = sum(2 * batch * a * b for a, b in zip(outs[:-1], outs[1:]))
+    return towers + head if not train else 2 * towers + 3 * head
+
+
+def dnn_phase(root, card, torch, csr):
+    """Phase 15: DNN at OneHotMatrix 0 at the Amazon-Book width: one
+    epoch, the AdamW check on a further step, step times, then serving.
+    Returns the epoch's K1 launches and the AdamW check's largest error."""
+    from gdmcf_torch.config import load_config
+    from gdmcf_torch.data.native import NativeCSR
+    from gdmcf_torch.ops import fused_adamw as FA
+    from gdmcf_torch.ops import spmm as S
+    from gdmcf_torch.serve import build_recommender
+    from gdmcf_torch.train.trainer import Trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = load_config(os.path.join(root, "configs", "amazonOneEmbGcn.yaml"),
+                      {"device": "cuda", "backbone": "DNN",
+                       "OneHotMatrix": 0})
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, N_USER, N_ITEM)
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params.values())
+    n_leaves = len(state.params)
+    log(f"DNN at OneHotMatrix 0: {n_params} trainable elements in {n_leaves}"
+        f" tensors {[tuple(p.shape) for p in state.params.values()]}, "
+        f"moments {cfg.opt_moment_dtype}, batch {cfg.batch_size}, lr "
+        f"{cfg.lr}, TF32 {'on' if trainer.tf32 else 'off'}, contrastive "
+        f"loss asked {trainer.diffusion.index_in and trainer.diffusion.cat_one_hot}"
+        f" (init {time.perf_counter() - t0:.1f} s)")
+    assert n_params == DNN_PARAMS and n_leaves == 6, (n_params, n_leaves)
+    assert not trainer.diffusion.cat_one_hot and not trainer.diffusion.index_in
+    dataset = NativeCSR.from_scipy(csr)
+    before = {k: p.detach().clone() for k, p in state.params.items()}
+
+    FA.reset_launch_counts()
+    S.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, total = trainer.train_epoch(state, dataset,
+                                       np.random.default_rng(0))
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = dict(FA.LAUNCHES)
+    steps = N_USER // cfg.batch_size
+    log(f"DNN train_epoch: {state.step} steps in {epoch_s:.2f} s, loss sum "
+        f"{total:.6e}, launches {launches}, SpMM launches {dict(S.LAUNCHES)}"
+        f" [{card}]")
+    assert state.step == steps == 272
+    assert np.isfinite(total), "a DNN train-step loss is not finite"
+    assert launches["fused_adamw"] == n_leaves * steps == 1_632, launches
+    assert not any(S.LAUNCHES.values())
+    for k, p in state.params.items():
+        assert bool((p.detach() != before[k]).any()), f"{k} did not move"
+    del before
+
+    batches = train_stream(dataset, cfg.batch_size)
+    step_err, clones = checked_step(trainer, state, *next(batches), torch,
+                                    "DNN")
+    del clones
+    p50, p90 = step_times(trainer, state, batches, torch)
+    log(f"DNN train step (batch {cfg.batch_size}): p50 {p50:.3f} ms, p90 "
+        f"{p90:.3f} ms over 20 steps, {cfg.batch_size / p50 * 1e3:.1f} "
+        f"examples/s; matmul work "
+        f"{dnn_matmul_flops(cfg, N_ITEM, cfg.batch_size, True):.4e} flop per"
+        f" step from shapes, {dnn_matmul_flops(cfg, N_ITEM, cfg.batch_size, True) / p50 / 1e9:.1f}"
+        f" TFLOP/s at the p50 [{card}]")
+
+    FA.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = build_recommender(cfg, None, csr, N_USER, N_ITEM, trainer=trainer,
+                            serve_batch=256, k_max=100)
+    log(f"DNN build_recommender: {time.perf_counter() - t0:.1f} s")
+    users_b = check_requests(rec, csr, N_ITEM, "DNN")
+    assert FA.LAUNCHES["fused_adamw"] == 0 and not any(S.LAUNCHES.values())
+    request_times(rec, users_b[:256], card, "DNN")
+    log(f"DNN request matmul work: {cfg.steps} forwards of "
+        f"{dnn_matmul_flops(cfg, N_ITEM, 256, False):.4e} flop from shapes; "
+        f"peak device memory of the phase "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    del rec, trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["fused_adamw"], step_err
+
+
+def split_runs(path, out_dir):
+    """The runs of a parity_run.py JSON as one reference file per seed."""
+    with open(path) as fh:
+        runs = json.load(fh)["runs"]
+    paths = []
+    for r in runs:
+        paths.append(os.path.join(out_dir, f"run_s{r['seed']}.json"))
+        with open(paths[-1], "w") as fh:
+            json.dump(r, fh)
+    return paths
+
+
+def backbone_gates_phase(root, card, torch, golden_dir):
+    """Phase 16: the golden gate of every backbone family with reference
+    data, and the Amazon-recipe and DNNOneHotEmbeddingGCN_conti gates, each
+    judged by the unchanged benchmarks/golden_parity.py against the
+    reference's runs, or where BACKBONE_GATES names them with the JAX
+    package's recorded runs too (split per seed): G4 against both pooled,
+    G9 on tail loss against the reference and on final R@20/N@20 against
+    the JAX package, which breaks ties as the port does. Returns the K1
+    launches by gate."""
+    from gdmcf_torch.data.loader import data_load_dir, generate_synthetic_dataset
+
+    tmp = tempfile.mkdtemp(prefix="gdmcf_gates_")
+    try:
+        dirs = {"golden": golden_dir}
+        for name, kw in (("round3", ROUND3_GATE_SET),
+                         ("amazon", AMAZON_GATE_SET)):
+            dirs[name] = os.path.join(tmp, name)
+            generate_synthetic_dataset(dirs[name], **kw)
+            train, _, _, n_user, n_item = data_load_dir(dirs[name])
+            log(f"gate data {name}: generate_synthetic_dataset({kw}): "
+                f"{n_user} x {n_item}, {train.nnz} train edges")
+        launches, failed = {}, []
+        for label, data, cfg_kw, epochs, pattern, jax in BACKBONE_GATES:
+            t0 = time.perf_counter()
+            ours, launches[label] = run_gate(root, card, torch, label,
+                                             dirs[data], epochs, cfg_kw)
+            refs = parity_refs(root, pattern)
+            verdict = golden_parity(root, ours, refs)
+            log(f"golden_parity.py ({label}, against {pattern}): "
+                + json.dumps(verdict))
+            if jax is not None:
+                name, use = jax
+                jax_refs = split_runs(os.path.join(
+                    root, "docs", "parity_data", name),
+                    tempfile.mkdtemp(dir=tmp))
+                if use == "pooled":
+                    verdict = golden_parity(root, ours, refs + jax_refs)
+                else:   # finals against the JAX package, tail loss not
+                    finals = golden_parity(root, ours, jax_refs)
+                    log(f"golden_parity.py ({label}, against {name}): "
+                        + json.dumps(finals))
+                    checks = {"tail_loss": verdict["checks"]["tail_loss"],
+                              **{k: v for k, v in finals["checks"].items()
+                                 if k.startswith("final_")}}
+                    verdict = {"checks": checks,
+                               "parity": all(checks.values())}
+                log(f"golden_parity.py ({label}, against {pattern} and "
+                    f"{name}, {use}): " + json.dumps(verdict))
+            if verdict["parity"] is not True:
+                failed.append(label)
+            log(f"gate {label}: {time.perf_counter() - t0:.1f} s, "
+                f"fused_adamw launches {launches[label]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert not failed, f"golden gates failed: {failed}"
+    log(f"backbone gates: parity true in all {len(BACKBONE_GATES)}")
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -1551,6 +1834,7 @@ def main() -> int:
 
     root = os.path.dirname(os.path.abspath(__file__))
     card = card_line()
+    t_start = time.perf_counter()
 
     # 1. build
     t0 = time.perf_counter()
@@ -1643,7 +1927,6 @@ def main() -> int:
         entry["launches_pretrain_epoch"] = adamw
         entry["pretrain_step_ms_p50"] = stats["excluded"][0]
         log(f"pretrain phase: {time.perf_counter() - t0:.1f} s")
-        del csr
         gc.collect()
 
         # 13. the LightGCN golden gate, dense and hybrid
@@ -1657,10 +1940,27 @@ def main() -> int:
 
         # 14. the pretraining CLI
         pretrain_cli_phase(root, data_dir)
+
+        # 15. DNN at OneHotMatrix 0 at the Amazon-Book width
+        t0 = time.perf_counter()
+        entry["launches_dnn_epoch"], dnn_err = dnn_phase(root, card, torch,
+                                                         csr)
+        entry["max_abs_err"] = max(entry["max_abs_err"], dnn_err)
+        log(f"DNN phase: {time.perf_counter() - t0:.1f} s")
+        del csr
+        gc.collect()
+
+        # 16. the backbone golden gates
+        t0 = time.perf_counter()
+        gates = backbone_gates_phase(root, card, torch, data_dir)
+        entry["launches_backbone_gates"] = sum(gates.values())
+        entry["launches_by_gate"] = gates
+        log(f"backbone gates phase: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    # 15. results
+    # 17. results
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of phases 1-16")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

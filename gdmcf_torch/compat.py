@@ -4,17 +4,24 @@ The JAX tree (given as numpy arrays, nested dicts and lists) and the port's
 ``state_dict`` name the same parameters one for one:
 
     emb_layer.{w, b}         <-> emb_layer.{weight, bias}
+    cat_layer.{w, b}         <-> cat_layer.{weight, bias}
     in_layers[N].{w, b}      <-> in_layers.N.{weight, bias}
     in_layers2[N].{w, b}     <-> in_layers2.N.{weight, bias}
     out_layers[N].{w, b}     <-> out_layers.N.{weight, bias}
     gcn/conv{1,2}/{w, b}     <-> gcn.conv{1,2}.{weight, bias}
+    enc{1,2}[N]/{qkv, out, ff1, ff2}/{w, b}
+                             <-> enc{1,2}.N.{qkv, out, ff1, ff2}.{weight, bias}
+    enc{1,2}[N]/ln{1,2}/{g, b}
+                             <-> enc{1,2}.N.ln{1,2}.{weight, bias}
     embedding_{item,user}    <-> embedding_{item,user}   (as stored)
     sumW                     <-> sumW                    (0-d)
     frozen_lgn_{user,item}   <-> frozen_lgn_{user,item}
 
 Every ``w`` is transposed: the JAX package stores [d_in, d_out] and
-computes ``x @ w``; ``nn.Linear`` stores [out, in]. Any other leaf keeps
-its name and layout.
+computes ``x @ w``; ``nn.Linear`` stores [out, in]. A LayerNorm's gain
+``g`` is ``nn.LayerNorm``'s 1-D ``weight`` (a Linear weight is 2-D, so the
+rank tells the two apart on the way back). Any other leaf keeps its name
+and layout.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ def state_dict_from_jax_params(params: Any) -> Dict[str, np.ndarray]:
                 if k == "w":
                     out[prefix + "weight"] = np.ascontiguousarray(
                         np.asarray(v).T)
+                elif k == "g":
+                    out[prefix + "weight"] = np.asarray(v)
                 elif k == "b":
                     out[prefix + "bias"] = np.asarray(v)
                 else:
@@ -58,7 +67,9 @@ def jax_params_from_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
         node = tree
         for p in path:
             node = node.setdefault(p, {})
-        if leaf == "weight":
+        if leaf == "weight" and value.ndim == 1:
+            node["g"] = value
+        elif leaf == "weight":
             node["w"] = np.ascontiguousarray(value.T)
         elif leaf == "bias":
             node["b"] = value

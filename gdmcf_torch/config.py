@@ -145,6 +145,11 @@ class Config:
             raise ValueError("wire_format must be packed or f32")
         if self.lr_schedule not in ("constant", "cosine", "linear"):
             raise ValueError("lr_schedule must be constant, cosine or linear")
+        if self.OneHotMatrix == 1 and not self.drop_last:
+            raise ValueError(
+                "OneHotMatrix=1 sizes the model input as n_item + batch_size"
+                " (reference main.py:198-206): a trailing partial batch "
+                "cannot run through it; keep drop_last=true")
         if self.opt_moment_dtype not in ("bfloat16", "float32"):
             raise ValueError("opt_moment_dtype must be bfloat16 or float32")
         # opt_impl: every value but the JAX package's optimizer chain

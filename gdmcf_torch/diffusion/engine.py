@@ -117,13 +117,17 @@ class Diffusion:
     discrete_eps: float          # epsilon of u_x (reference ``--discrete``)
     coeffs: Optional[DiffusionCoeffs] = None
     cat_one_hot: bool = True     # OneHotMatrix == 2
+    index_in: bool = True        # the model reads index (reference indexIn)
     user_guided: bool = True
     fidelity: bool = True
     history_num_per_term: int = 10
     uniform_prob: float = 0.001
 
     @staticmethod
-    def create(cfg, variant: str = "discrete", device=None) -> "Diffusion":
+    def create(cfg, variant: str = "discrete", device=None,
+               index_in: bool = True) -> "Diffusion":
+        """``index_in``: the model's ``needs_index``; only such a model is
+        asked for the contrastive loss, as in the reference."""
         if variant != "discrete":
             raise NotImplementedError(
                 f"diffusion variant {variant!r} is not ported yet (ROADMAP.md"
@@ -139,7 +143,7 @@ class Diffusion:
             mean_type=mean_type, steps=cfg.steps,
             noise_scale=cfg.noise_scale, discrete_eps=cfg.discrete,
             coeffs=coeffs, cat_one_hot=(cfg.OneHotMatrix == 2),
-            user_guided=bool(cfg.user_guided),
+            index_in=index_in, user_guided=bool(cfg.user_guided),
             fidelity=cfg.fidelity,
             history_num_per_term=cfg.history_num_per_term)
 
@@ -297,10 +301,9 @@ class Diffusion:
         noise = _normal(x_start.shape, x_start, generator, draws.noise)
         x_t = (self.q_sample(x_start, ts, noise) if self.noise_scale != 0.0
                else x_start)
-        # every ported backbone takes index and graph (the reference's
-        # indexIn path), where the contrastive loss is requested
+        # the contrastive loss is requested on the indexIn path only
         model_output, closs = model(x_t, ts, x_tU, index=index, graph=x_tU,
-                                    rcloss=self.cat_one_hot,
+                                    rcloss=self.index_in and self.cat_one_hot,
                                     generator=generator,
                                     dropout_u=draws.dropout)
         target = x_start if self.mean_type == MeanType.START_X else noise
@@ -342,7 +345,8 @@ class Diffusion:
             raise ValueError("noise_scale=0 supports only sampling_steps=0")
         if self.noise_scale == 0.0:
             raise NotImplementedError(
-                "the noise_scale=0 reverse path is not ported yet")
+                "the noise_scale=0 reverse path is not ported yet (ROADMAP.md"
+                " §A item 6)")
         draws = draws or PSampleDraws()
         B, n = x_start.shape
         dev = x_start.device

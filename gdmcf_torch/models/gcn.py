@@ -14,8 +14,8 @@ so with the reference's directed edges user rows are graph-independent.
     deg_u     = 1 + sum_i G[u, i]
     user_out  = (X_u W) / deg_u + (G / sqrt(deg_u deg_i)) (X_i W) + b
 
-``mean_aggregation`` and ``mini_lightgcn_apply`` are not on any model's path
-and are not ported yet (ROADMAP.md §A item 5).
+``mean_aggregation`` and ``mini_lightgcn_apply`` are the reference's
+parameter-free aggregation alternative; no backbone calls them.
 """
 
 from __future__ import annotations
@@ -86,3 +86,22 @@ def layer_gcn_user_rows(gcn: LayerGCN, h_users: torch.Tensor) -> torch.Tensor:
     if gcn.num_layers == 2:
         u = gcn.conv2(_act(u))
     return u
+
+
+def mean_aggregation(h_users: torch.Tensor, h_items: torch.Tensor,
+                     g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One parameter-free add-aggregation hop over the directed user ->
+    item edges: items sum their users' features, users receive nothing
+    (no self-loops)."""
+    return torch.zeros_like(h_users), g.T @ h_users
+
+
+def mini_lightgcn_apply(h_users: torch.Tensor, h_items: torch.Tensor,
+                        g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two aggregation hops with relu between, as the reference's module.
+
+    Degenerate by construction, as in the reference: hop 1 zeroes the user
+    features and hop 2 aggregates those zeros while it drops the item
+    features, so the result is (0, 0) for every input."""
+    u, i = mean_aggregation(h_users, h_items, g)
+    return mean_aggregation(F.relu(u), F.relu(i), g)

@@ -3,7 +3,8 @@
 Port of the JAX package's ``models/layers.py``. Linear layers are ``nn.Linear``
 (weight stored [out, in]; the JAX package stores [in, out]) initialized as
 the reference does: Xavier-normal weight, N(0, 0.001) bias. Embedding tables
-are Xavier-uniform; a GCN conv has a Glorot-uniform weight and a zero bias.
+are Xavier-uniform; a GCN conv has a Glorot-uniform weight and a zero bias;
+the transformer's encoder layers keep torch's defaults.
 Every draw takes an explicit ``torch.Generator``.
 """
 
@@ -24,6 +25,19 @@ def linear_init(d_in: int, d_out: int, generator: torch.Generator,
     with torch.no_grad():
         nn.init.normal_(layer.weight, 0.0, std, generator=generator)
         nn.init.normal_(layer.bias, 0.0, 0.001, generator=generator)
+    return layer
+
+
+def torch_linear_default(d_in: int, d_out: int, generator: torch.Generator,
+                         device=None) -> nn.Linear:
+    """nn.Linear with torch's own default init drawn from ``generator``:
+    U(+-1/sqrt(fan_in)) for the weight and for the bias (the transformer's
+    encoder layers keep it; the reference re-inits only its MLPs)."""
+    layer = nn.Linear(d_in, d_out, device=device)
+    bound = 1.0 / math.sqrt(d_in)
+    with torch.no_grad():
+        layer.weight.uniform_(-bound, bound, generator=generator)
+        layer.bias.uniform_(-bound, bound, generator=generator)
     return layer
 
 

@@ -1,23 +1,21 @@
-"""Backbone registry (port of the JAX package's ``models/registry.py``).
-
-Builds ``lightGCN`` and the flagship ``DNNOneHotEmbeddingGCN`` (and its
-``_conti`` variant); every other backbone raises and names the ROADMAP.md
-item that ports it.
-"""
+"""Backbone registry (port of the JAX package's ``models/registry.py``):
+the reference's construction switch over the 11 backbone names."""
 
 from __future__ import annotations
 
 import torch
 
-from gdmcf_torch.models.backbones import DNNlightGCN, DNNOneHotEmbeddingGCN
+from gdmcf_torch.models import backbones as B
 
 BACKBONES = (
     "DNN", "DNN_conti", "DNNCat", "DNNCat2", "DNNOneHot",
     "DNNOneHotTransformer", "DNNOneHotEmbedding", "DNNOneHotEmbedding_conti",
     "DNNOneHotEmbeddingGCN", "DNNOneHotEmbeddingGCN_conti", "lightGCN",
 )
-_FLAGSHIP = {"DNNOneHotEmbeddingGCN": False,
-             "DNNOneHotEmbeddingGCN_conti": True}
+# the backbones built from (in_dims, out_dims, emb_size) alone
+_PLAIN = {"DNN": B.DNN, "DNNCat": B.DNNCat, "DNNCat2": B.DNNCat2,
+          "DNNOneHot": B.DNNOneHot,
+          "DNNOneHotTransformer": B.DNNOneHotTransformer}
 
 
 def build_model(cfg, n_user: int, n_item: int, train_csr=None, *,
@@ -28,20 +26,26 @@ def build_model(cfg, n_user: int, n_item: int, train_csr=None, *,
     would exceed ``_DENSE_LIMIT_BYTES``."""
     b = cfg.backbone
     in_dims, out_dims = cfg.in_dims(n_item), cfg.out_dims(n_item)
-    if b in _FLAGSHIP:
-        # the corrected mode guards the cosine head's denominator
-        return DNNOneHotEmbeddingGCN(
+    common = dict(generator=generator, device=device, norm=cfg.norm,
+                  dropout_rate=cfg.dropout)
+    # the corrected mode guards the cosine head's denominator
+    emb_kw = dict(cosine_eps=0.0 if cfg.fidelity else 1e-8,
+                  conti=b.endswith("_conti"))
+    if b in _PLAIN:
+        return _PLAIN[b](in_dims, out_dims, cfg.emb_size, **common)
+    if b == "DNN_conti":
+        return B.DNN_conti(in_dims, out_dims, cfg.emb_size, n_item, n_user,
+                           **common)
+    if b in ("DNNOneHotEmbedding", "DNNOneHotEmbedding_conti"):
+        return B.DNNOneHotEmbedding(in_dims, out_dims, cfg.emb_size, n_item,
+                                    n_user, **common, **emb_kw)
+    if b in ("DNNOneHotEmbeddingGCN", "DNNOneHotEmbeddingGCN_conti"):
+        return B.DNNOneHotEmbeddingGCN(
             in_dims, out_dims, cfg.emb_size, n_item, n_user,
-            generator=generator, device=device, norm=cfg.norm,
-            dropout_rate=cfg.dropout, gcn_layer_num=cfg.gcnLayerNum,
-            noise_type=cfg.noise_type, symmetric_gcn=cfg.symmetric_gcn,
-            conti=_FLAGSHIP[b], cosine_eps=0.0 if cfg.fidelity else 1e-8)
+            gcn_layer_num=cfg.gcnLayerNum, noise_type=cfg.noise_type,
+            symmetric_gcn=cfg.symmetric_gcn, **common, **emb_kw)
     if b != "lightGCN":
-        if b not in BACKBONES:
-            raise ValueError(f"not implemented backbone: {b}")
-        raise NotImplementedError(
-            f"backbone {b} is not ported yet: ROADMAP.md §A item 5 (other "
-            "backbones)")
+        raise ValueError(f"not implemented backbone: {b}")
     norm_adj, sparse_adj = None, None
     if train_csr is not None:
         from gdmcf_torch.models import lightgcn as _lg
@@ -51,7 +55,5 @@ def build_model(cfg, n_user: int, n_item: int, train_csr=None, *,
         else:
             norm_adj = torch.from_numpy(
                 _lg.normalized_bipartite_blocks(train_csr))
-    return DNNlightGCN(in_dims, out_dims, cfg.emb_size, n_user, n_item,
-                       generator=generator, device=device, norm=cfg.norm,
-                       dropout_rate=cfg.dropout, norm_adj=norm_adj,
-                       sparse_adj=sparse_adj)
+    return B.DNNlightGCN(in_dims, out_dims, cfg.emb_size, n_user, n_item,
+                         norm_adj=norm_adj, sparse_adj=sparse_adj, **common)

@@ -8,7 +8,9 @@ any ``k <= k_max`` is a prefix of that ranking.
         --device cuda --data_path ./Datasets/amazon-book_clean/
 
 serves the recipe's backbone (the flagship ``DNNOneHotEmbeddingGCN``;
-``--backbone lightGCN`` for the other) from the newest checkpoint of
+``--backbone`` takes any name of ``models.registry.BACKBONES``; a
+OneHotMatrix 1 model serves at ``--serve_batch`` equal to its
+``batch_size``) from the newest checkpoint of
 ``--ckpt_dir_serve`` (or ``--ckpt_dir``), as ``fit`` writes them. Without
 either the recommender serves a fresh init (demo mode) or, from Python, a
 trained ``Trainer`` (``build_recommender(..., trainer=t)``):
@@ -36,6 +38,12 @@ from gdmcf_torch.train.trainer import Trainer
 class Recommender:
     def __init__(self, trainer: Trainer, history: NativeCSR,
                  serve_batch: int = 256, k_max: int = 100):
+        if trainer.cfg.OneHotMatrix == 1 and serve_batch != \
+                trainer.cfg.batch_size:
+            # the block-one-hot model's input width is n_item + batch_size
+            raise ValueError(
+                f"OneHotMatrix=1 models serve only at serve_batch = "
+                f"batch_size ({trainer.cfg.batch_size}); got {serve_batch}")
         self.trainer = trainer
         self.history = history
         self.serve_batch = serve_batch

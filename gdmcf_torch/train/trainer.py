@@ -3,7 +3,10 @@
 Port of the JAX package's ``train/trainer.py``: the train step is unpack ->
 ``training_losses`` -> mean -> backward -> optional global-norm clip ->
 AdamW (the single-pass update, a Triton kernel on CUDA tensors); the eval
-step is unpack -> ``p_sample`` -> mask seen items -> exact top-k.
+step is unpack -> ``p_sample`` -> mask seen items -> exact top-k. Under
+OneHotMatrix 1 both steps see each batch as the block adjacency
+[B + n_item, B + n_item] (the model's width is n_item + batch_size, so a
+partial batch cannot run through it: the config refuses drop_last false).
 ``train_epoch`` runs one process's epoch; ``evaluate`` (dense rows, cached
 on the device) and ``evaluate_streaming`` (batches assembled from
 ``NativeCSR``) rank the catalog and sum the metrics on the device; ``fit``
@@ -61,9 +64,6 @@ class Trainer:
         self.n_user = n_user
         self.n_item = n_item
         self.device = resolve_device(cfg.device if device is None else device)
-        if cfg.OneHotMatrix == 1:
-            raise NotImplementedError(
-                "OneHotMatrix=1 is not ported yet (ROADMAP.md §A item 5)")
         # parameter init draws from one generator seeded by random_seed
         self.generator = torch.Generator(self.device).manual_seed(
             cfg.random_seed)
@@ -79,7 +79,8 @@ class Trainer:
                 "(the reference crashes there too); use a graph-free "
                 "backbone for this ablation")
         self.diffusion = Diffusion.create(
-            cfg, variant=cfg.diffusion_variant, device=self.device)
+            cfg, variant=cfg.diffusion_variant, device=self.device,
+            index_in=self.model.needs_index)
         # TF32 only on the GPU: a CPU run stays in full float32
         self.tf32 = (self.device.type == "cuda"
                      and cfg.compute_dtype == "bfloat16")
@@ -143,6 +144,15 @@ class Trainer:
             return unpack_rows(x, self.n_item)
         return x.float()
 
+    @staticmethod
+    def _to_block_onehot(x: torch.Tensor) -> torch.Tensor:
+        """OneHotMatrix 1: the [B, n] rows as the upper-right block of a
+        [B + n, B + n] adjacency (the reference's adjacency_to_one_hot)."""
+        b, n = x.shape
+        y = x.new_zeros((b + n, b + n))
+        y[:b, b:] = x
+        return y
+
     # -- training ----------------------------------------------------------
     def loss_and_grads(self, state: TrainState, x: torch.Tensor,
                        index: torch.Tensor,
@@ -151,6 +161,9 @@ class Trainer:
         parameter name, the new LtState). Changes nothing in ``state``
         except its generator's position."""
         x = self._unpack(x.to(self.device))
+        if self.cfg.OneHotMatrix == 1 and x.shape[-1] == self.n_item:
+            # a caller may pass the block already ([B + n, B + n])
+            x = self._to_block_onehot(x)
         index = index.to(self.device).long()
         self.model.train()
         names = list(state.params)
@@ -217,16 +230,24 @@ class Trainer:
                   mask: torch.Tensor, sampling_steps: int, top_k: int,
                   generator=None, draws=None, return_scores: bool = False):
         """p_sample -> mask seen items -> top-k item ids [B, top_k].
+        OneHotMatrix 1 samples the block of the rows, zeroes scores <= 0.1
+        and ranks the block's upper-right [B, n_item] part, as the
+        reference does.
 
         ``return_scores`` also returns the masked scores before top-k."""
         self.model.eval()
         x = self._unpack(x)
         mask = self._unpack(mask)
+        block = self.cfg.OneHotMatrix == 1
         with matmul_precision(self.tf32):
             scores = self.diffusion.p_sample(
-                self.model, x, index, sampling_steps=sampling_steps,
+                self.model, self._to_block_onehot(x) if block else x, index,
+                sampling_steps=sampling_steps,
                 sampling_noise=self.cfg.sampling_noise, generator=generator,
                 draws=draws)
+        if block:
+            b = x.shape[0]
+            scores = scores.masked_fill(scores <= 0.1, 0.0)[:b, b:]
         scores = scores.masked_fill(mask > 0, float("-inf"))
         _, idx = chunked_topk(scores, top_k)
         return (idx, scores) if return_scores else idx

@@ -130,12 +130,24 @@ def test_serve_cli_device_flag_and_checkpoint_refusal(tmp_path, capsys):
 
 
 def test_other_backbones_name_their_roadmap_item():
+    """Every backbone name builds; an unknown one raises; what is still
+    unported (the legacy and ablation diffusion variants, the noise_scale=0
+    reverse path) names its ROADMAP.md item."""
     from gdmcf_torch.config import Config
-    from gdmcf_torch.models.registry import build_model
+    from gdmcf_torch.diffusion.engine import Diffusion
+    from gdmcf_torch.models.registry import BACKBONES, build_model
 
     g = torch.Generator().manual_seed(0)
-    for b in ("DNNOneHotEmbedding", "DNN"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build_model(Config(backbone=b), 4, 5, generator=g, device="cpu")
+    for b in BACKBONES:
+        m = build_model(Config(backbone=b, dims=[8]), 4, 6, generator=g,
+                        device="cpu")
+        assert isinstance(m, torch.nn.Module)
     with pytest.raises(ValueError):
         build_model(Config(backbone="nope"), 4, 5, generator=g, device="cpu")
+    for variant in ("legacy", "ablation"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            Diffusion.create(Config(), variant=variant)
+    flat = Diffusion.create(Config(noise_scale=0.0, steps=5))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        flat.p_sample(None, torch.zeros(2, 3), torch.zeros(2).long(),
+                      sampling_steps=0)
