@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive gdmcf_torch's serving, training and LightGCN pretraining paths, and
-every denoiser backbone's golden gate, on one NVIDIA GPU and check them.
+"""Drive gdmcf_torch's serving (in Python and over HTTP), training and
+LightGCN pretraining paths, every denoiser backbone's golden gate and the
+legacy and ablation diffusion variants on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                  # from the root of a checkout
     python3 chip_smoke.py --profile FILE   # also writes torch.profiler
@@ -10,6 +11,13 @@ every denoiser backbone's golden gate, on one NVIDIA GPU and check them.
                                            # steps, and times the SpMM
                                            # kernel at several segment
                                            # lengths
+    python3 chip_smoke.py --fresh-seed-gates
+                                           # only the LightGCN gate (phase
+                                           # 13) at seeds 6-8 and G4 at
+                                           # seeds 3-8, verdicts reported
+                                           # against the bands of phases 13
+                                           # and 16 (reference-only and
+                                           # pooled for G4)
 
 Phases (any failure exits non-zero):
   1. build the CUDA kernel from gdmcf_torch/csrc/ and print the card;
@@ -117,7 +125,35 @@ Phases (any failure exits non-zero):
      the Amazon recipe (flagship, batch 400, dims [1024], lr 5e-5,
      noise_scale 1e-4, 120 epochs, 1,200 users); each written to
      chiprun_out/torch_<gate>.json;
- 17. the kernel JSON line, the card's name and power limit, and as the
+ 17. HTTP serving at the Amazon-Book size, the lightGCN backbone and the
+     flagship, each through serve_http.make_server on 127.0.0.1 in this
+     process, with a load generator in a process of its own: start-up
+     launches the SpMM kernel 2 + 2 times for lightGCN, requests and
+     reloads none; 1, 16 and 64 concurrent clients of 1-user
+     GET /recommend?k=20, every response equal to rec.recommend for its
+     user (HTTP p50/p90/p99, requests/s, dispatches and rows a dispatch);
+     64 clients through serve_multiproc with 4 pre-forked fronts; a quiet
+     POST /reload (wall time, peak device memory growth against one
+     parameter set) and one under 16 clients between two checkpoints
+     whose parameters differ (no failed request, params_version + 1, every
+     response the old or the new ids, every request after it the ids of a
+     fresh Recommender.from_checkpoint; the longest request during it);
+     a checkpoint of another geometry gets 409 and the loaded parameters
+     keep serving; for lightGCN also `python -m gdmcf_torch.serve_http
+     --device cuda` from a checkpoint: launch to the first /healthz, one
+     recommend, SIGHUP reloads, SIGTERM exits 0 (chiprun_out/
+     torch_http.json);
+ 18. the legacy and ablation golden gates (DNN at OneHotMatrix 0, dims
+     [1000], batch 400, lr 1e-4, noise_scale 0.01, steps 5, 150 epochs,
+     n_user_cap 3000, seeds 0-2, on the phase-8 set), judged by the
+     unchanged benchmarks/golden_parity.py against docs/parity_data/
+     ref_{legacy,ablation}_s*.json pooled with the JAX package's recorded
+     runs jax_{legacy,ablation}_head.json (the reference-only verdict is
+     printed too): both must read "parity": true; then
+     one train_epoch (272 steps) of DNN at OneHotMatrix 0 under each
+     variant at the Amazon-Book width, 6 AdamW launches a step, each
+     followed by the request checks of a served batch;
+ 19. the kernel JSON line, the card's name and power limit, and as the
      last line {"ok": true, "device": {...}}.
 """
 
@@ -131,6 +167,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -161,6 +198,27 @@ ROUND3_GATE_SET = dict(n_user=1200, n_item=1000, avg_degree=15, seed=0)
 # the Amazon-shaped set of ref_amazon_s*.json (capped at 1,200 users)
 AMAZON_GATE_SET = dict(n_user=4000, n_item=1500, avg_degree=9, seed=7)
 ROUND3 = dict(lr=1e-4, batch_size=400, dims=[1000])
+# phase 18: parity_run.py's recipe of ref_{legacy,ablation}_s*.json (their
+# configs: DNN, OneHotMatrix 0, dims [1000], batch 400, lr 1e-4,
+# noise_scale 0.01, steps 5, n_user_cap 3000) on the phase-8 set
+VARIANT_RECIPE = dict(backbone="DNN", OneHotMatrix=0, **ROUND3)
+# (variant, reference runs, the JAX package's recorded runs and their use):
+# judged against both pooled, a choice made after the first card run read
+# 2 of 3 tail losses over the reference-only band; the JAX package's own
+# CPU seeds 0-5 spread past it too (PERF.md section 6, PR 7). The _head
+# files are the runs of the current JAX package (its per-epoch shuffles)
+VARIANT_GATES = (
+    ("legacy", "ref_legacy_s*.json", ("jax_legacy_head.json", "pooled")),
+    ("ablation", "ref_ablation_s*.json",
+     ("jax_ablation_head.json", "pooled")),
+)
+# phase 17: concurrent clients -> 1-user requests each client sends
+HTTP_CLIENTS = {1: 60, 16: 40, 64: 25}
+HTTP_USERS = 512               # distinct users the clients take in turn
+HTTP_RELOAD_LOAD_S = 6.0       # the 16-client load around a reload
+# --fresh-seed-gates: seeds no earlier run rehearsed
+FRESH_LGN_SEEDS = (6, 7, 8)
+FRESH_G4_SEEDS = (3, 4, 5, 6, 7, 8)
 # phase 16: (label, data set, golden_config overrides, epochs, reference
 # runs, the JAX package's recorded runs and what they judge); the labels
 # name chiprun_out/torch_<label>.json. "pooled": the band spans the
@@ -930,8 +988,9 @@ def parity_refs(root, pattern):
     return refs
 
 
-def run_gate(root, card, torch, label, data_dir, epochs, cfg_kw):
-    """GOLDEN_SEEDS x ``epochs`` of Trainer.fit at golden_config(seed,
+def run_gate(root, card, torch, label, data_dir, epochs, cfg_kw,
+             seeds=GOLDEN_SEEDS):
+    """``seeds`` x ``epochs`` of Trainer.fit at golden_config(seed,
     epochs, **cfg_kw) on the dataset in ``data_dir``, written to
     chiprun_out/torch_<label>.json in parity_run.py's JSON shape (fit's
     metric lines to torch_<label>_fit.log); every step launches K1 once per
@@ -946,7 +1005,7 @@ def run_gate(root, card, torch, label, data_dir, epochs, cfg_kw):
     fit_log = os.path.join(out_dir, f"torch_{label}_fit.log")
     open(fit_log, "w").close()
     runs, launches = [], 0
-    for seed in GOLDEN_SEEDS:
+    for seed in seeds:
         cfg = golden_config(seed, epochs, **cfg_kw)
         n_rows = min(n_user, cfg.n_user_cap)
         trainer = Trainer(cfg, n_rows, n_item)
@@ -989,7 +1048,7 @@ def run_gate(root, card, torch, label, data_dir, epochs, cfg_kw):
     with open(ours, "w") as fh:
         json.dump({"config": dict(cfg_kw, backbone=cfg.backbone,
                                   epochs=epochs,
-                                  seeds=list(GOLDEN_SEEDS), device=card),
+                                  seeds=list(seeds), device=card),
                    "runs": runs}, fh)
     return ours, launches
 
@@ -1531,12 +1590,14 @@ def parse_pretrain_log(lines, n_users, n_items, seed):
     return out
 
 
-def lightgcn_gate_phase(root, card, torch):
+def lightgcn_gate_phase(root, card, torch, seeds=LGN_GATE_SEEDS,
+                        out_name="torch_lightgcn_parity.json", require=True):
     """Phase 13: the LightGCN golden gate, 3 seeds x 30 epochs of the
     reference recipe on the ml-100k-shaped data, judged against the
     reference runs in docs/parity_data/lightgcn_parity.json with the band
     rule of benchmarks/lightgcn_parity.py, once with the recipe's dense
-    operand and once with the hybrid one."""
+    operand and once with the hybrid one. ``require`` False reports the
+    verdicts without failing on them (the --fresh-seed-gates run)."""
     from gdmcf_torch.data.loader import generate_ml100k_csv, load_ml100k
     from gdmcf_torch.models import lightgcn as lg
     from gdmcf_torch.ops import fused_adamw as FA
@@ -1561,7 +1622,7 @@ def lightgcn_gate_phase(root, card, torch):
         S.reset_launch_counts()
         FA.reset_launch_counts()
         ours = []
-        for seed in LGN_GATE_SEEDS:
+        for seed in seeds:
             lines = []
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1579,7 +1640,7 @@ def lightgcn_gate_phase(root, card, torch):
                 f"{run['recall'][-1]}/{run['precision'][-1]}/"
                 f"{run['ndcg'][-1]}/{run['map'][-1]}, tail loss "
                 f"{tail(run['loss']):.4f} ({run['elapsed_s']} s) [{card}]")
-        n = len(LGN_GATE_SEEDS)
+        n = len(seeds)
         # per epoch: each step 3 layers x 2 directions forward and
         # backward, and the evaluation's forward propagation
         per_dir = n * LGN_GATE_EPOCHS * (6 * steps + 3)
@@ -1602,10 +1663,12 @@ def lightgcn_gate_phase(root, card, torch):
         log(f"lightgcn_parity ({mode}, launches {launches[mode]}): "
             + json.dumps({"checks": checks,
                           "parity": results[mode]["parity"]}))
-    out = os.path.join(root, "chiprun_out", "torch_lightgcn_parity.json")
+    out = os.path.join(root, "chiprun_out", out_name)
     os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out, "w") as fh:
         json.dump(results, fh)
+    if not require:
+        return results
     for mode, res in results.items():
         assert res["parity"] is True, f"the LightGCN gate failed ({mode})"
     log(f"lightgcn gate: parity true, dense and hybrid; written to {out}")
@@ -1753,6 +1816,38 @@ def split_runs(path, out_dir):
     return paths
 
 
+def judge_gate(root, tmp, label, ours, pattern, jax):
+    """The verdict of the unchanged benchmarks/golden_parity.py on the runs
+    in ``ours`` against the reference runs ``pattern``, printed. Where
+    ``jax`` names the JAX package's recorded runs (file, use), they are
+    split per seed into ``tmp`` and the verdict returned is the one against
+    the reference's and the JAX package's runs pooled (``pooled``), or
+    tail loss against the reference and final R@20/N@20 against the JAX
+    package (``finals``); the reference-only verdict is printed first."""
+    refs = parity_refs(root, pattern)
+    verdict = golden_parity(root, ours, refs)
+    log(f"golden_parity.py ({label}, against {pattern}): "
+        + json.dumps(verdict))
+    if jax is None:
+        return verdict
+    name, use = jax
+    jax_refs = split_runs(os.path.join(root, "docs", "parity_data", name),
+                          tempfile.mkdtemp(dir=tmp))
+    if use == "pooled":
+        verdict = golden_parity(root, ours, refs + jax_refs)
+    else:   # finals against the JAX package, tail loss not
+        finals = golden_parity(root, ours, jax_refs)
+        log(f"golden_parity.py ({label}, against {name}): "
+            + json.dumps(finals))
+        checks = {"tail_loss": verdict["checks"]["tail_loss"],
+                  **{k: v for k, v in finals["checks"].items()
+                     if k.startswith("final_")}}
+        verdict = {"checks": checks, "parity": all(checks.values())}
+    log(f"golden_parity.py ({label}, against {pattern} and {name}, {use}): "
+        + json.dumps(verdict))
+    return verdict
+
+
 def backbone_gates_phase(root, card, torch, golden_dir):
     """Phase 16: the golden gate of every backbone family with reference
     data, and the Amazon-recipe and DNNOneHotEmbeddingGCN_conti gates, each
@@ -1779,29 +1874,8 @@ def backbone_gates_phase(root, card, torch, golden_dir):
             t0 = time.perf_counter()
             ours, launches[label] = run_gate(root, card, torch, label,
                                              dirs[data], epochs, cfg_kw)
-            refs = parity_refs(root, pattern)
-            verdict = golden_parity(root, ours, refs)
-            log(f"golden_parity.py ({label}, against {pattern}): "
-                + json.dumps(verdict))
-            if jax is not None:
-                name, use = jax
-                jax_refs = split_runs(os.path.join(
-                    root, "docs", "parity_data", name),
-                    tempfile.mkdtemp(dir=tmp))
-                if use == "pooled":
-                    verdict = golden_parity(root, ours, refs + jax_refs)
-                else:   # finals against the JAX package, tail loss not
-                    finals = golden_parity(root, ours, jax_refs)
-                    log(f"golden_parity.py ({label}, against {name}): "
-                        + json.dumps(finals))
-                    checks = {"tail_loss": verdict["checks"]["tail_loss"],
-                              **{k: v for k, v in finals["checks"].items()
-                                 if k.startswith("final_")}}
-                    verdict = {"checks": checks,
-                               "parity": all(checks.values())}
-                log(f"golden_parity.py ({label}, against {pattern} and "
-                    f"{name}, {use}): " + json.dumps(verdict))
-            if verdict["parity"] is not True:
+            if judge_gate(root, tmp, label, ours, pattern,
+                          jax)["parity"] is not True:
                 failed.append(label)
             log(f"gate {label}: {time.perf_counter() - t0:.1f} s, "
                 f"fused_adamw launches {launches[label]}")
@@ -1812,15 +1886,625 @@ def backbone_gates_phase(root, card, torch, golden_dir):
     return launches
 
 
+def http_client(argv) -> int:
+    """``chip_smoke.py --http-client BASE CLIENTS COUNT SECONDS USERS``:
+    the load generator, a process of its own (standard library only, so
+    its threads share no interpreter with the server). CLIENTS threads
+    start together; each sends 1-user ``GET /recommend?users=U&k=20``
+    requests one after another, COUNT of them, or for SECONDS when COUNT
+    is 0, taking users from the comma-separated USERS list in turn. Prints
+    one JSON object: per request [user, wall-clock start, latency ms, ids
+    or null, error or null], and the wall time of the run."""
+    import http.client
+    import threading
+    from urllib.parse import urlparse
+
+    base, clients, count, seconds = (argv[0], int(argv[1]), int(argv[2]),
+                                     float(argv[3]))
+    host, port = urlparse(base).hostname, urlparse(base).port
+    users = [int(u) for u in argv[4].split(",")]
+    out = [[] for _ in range(clients)]
+    barrier = threading.Barrier(clients)
+
+    def get(u):
+        # http.client, not urllib: urllib's first call in each thread
+        # builds an opener with a TLS context, tens of ms under the GIL
+        conn = http.client.HTTPConnection(host, port, timeout=120)
+        try:
+            conn.request("GET", f"/recommend?users={u}&k=20")
+            r = conn.getresponse()
+            body = r.read()
+            if r.status != 200:
+                raise RuntimeError(f"HTTP {r.status}: {body[:200]!r}")
+            return json.loads(body)["items"][0]
+        finally:
+            conn.close()
+
+    def run(c):
+        barrier.wait()
+        stop = time.time() + seconds
+        j = 0
+        while (j < count) if count else (time.time() < stop):
+            u = users[(c * max(count, 1) + j) % len(users)]
+            j += 1
+            t_wall, t0 = time.time(), time.perf_counter()
+            try:
+                items, err = get(u), None
+            except Exception as e:   # recorded, and failed by the caller
+                items, err = None, f"{type(e).__name__}: {e}"
+            out[c].append([u, t_wall, (time.perf_counter() - t0) * 1e3,
+                           items, err])
+
+    threads = [threading.Thread(target=run, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    print(json.dumps({"requests": [r for rs in out for r in rs],
+                      "wall_s": time.perf_counter() - t0}))
+    return 0
+
+
+def start_load(base, clients, count, seconds, users):
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--http-client", base,
+         str(clients), str(count), str(seconds),
+         ",".join(str(int(u)) for u in users)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_load(proc, timeout=600):
+    out, err = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, err[-3000:]
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def free_port() -> int:
+    import socket
+    probe = socket.socket()
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    return port
+
+
+def get_json(url, payload=None, timeout=300):
+    """(status, JSON body) of a GET, or of a POST of ``payload`` (bytes);
+    an HTTP error status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=payload, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def wait_healthz(base, proc=None, limit=120.0):
+    """The /healthz body once the server answers; fails when ``proc``
+    exits or ``limit`` seconds pass first."""
+    deadline = time.time() + limit
+    while time.time() < deadline:
+        if proc is not None:
+            assert proc.poll() is None, "the server exited during start-up"
+        try:
+            return get_json(base + "/healthz", timeout=10)[1]
+        except OSError:
+            time.sleep(0.1)
+    raise AssertionError(f"{base} did not answer in {limit} s")
+
+
+def load_summary(res, expected, label, card, stats0, stats1,
+                 what="every response equals rec.recommend"):
+    """Check every response against ``expected`` (user -> a list of
+    acceptable id lists) and print latency percentiles, requests/s and
+    rows per dispatch; returns the summary."""
+    reqs = res["requests"]
+    errors = [r[4] for r in reqs if r[4] is not None]
+    assert not errors, f"{label}: {len(errors)} failed requests: {errors[:3]}"
+    for u, _t, _ms, items, _e in reqs:
+        want = expected[u]
+        assert any(items == w for w in want), \
+            f"{label}: user {u} got {items[:5]}..., the library {want[0][:5]}..."
+    lat = np.array([r[2] for r in reqs])
+    dispatches = stats1["dispatches"] - stats0["dispatches"]
+    rows = stats1["rows"] - stats0["rows"]
+    out = {"requests": len(reqs), "wall_s": res["wall_s"],
+           "requests_per_s": len(reqs) / res["wall_s"],
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p90_ms": float(np.percentile(lat, 90)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "max_ms": float(lat.max()), "dispatches": dispatches,
+           "rows_per_dispatch": rows / max(dispatches, 1)}
+    log(f"http {label}: {out['requests']} requests in {out['wall_s']:.2f} s"
+        f" = {out['requests_per_s']:.1f} requests/s; latency p50 "
+        f"{out['p50_ms']:.3f} ms, p90 {out['p90_ms']:.3f} ms, p99 "
+        f"{out['p99_ms']:.3f} ms, max {out['max_ms']:.3f} ms; {dispatches}"
+        f" dispatches, {out['rows_per_dispatch']:.2f} rows a dispatch; "
+        f"{what} [{card}]")
+    return out
+
+
+def write_checkpoint(torch, directory, params, cfg, step):
+    """A checkpoint in fit's format (train/checkpoint.py) holding
+    ``params`` (host tensors), zero moments and an empty Lt ring."""
+    from gdmcf_torch.diffusion.engine import LtState
+    from gdmcf_torch.ops.fused_adamw import fused_adamw_init
+    from gdmcf_torch.train.checkpoint import Checkpointer
+    from gdmcf_torch.train.state import TrainState
+    moments = {"bfloat16": torch.bfloat16,
+               "float32": torch.float32}[cfg.opt_moment_dtype]
+    state = TrainState(step=step, params=params,
+                       opt_state=fused_adamw_init(params, moments),
+                       lt=LtState.create(cfg.steps, cfg.history_num_per_term),
+                       generator=torch.Generator())
+    ck = Checkpointer(directory, max_to_keep=1)
+    ck.save(state)
+    ck.close()
+
+
+def http_checkpoints(torch, rec, cfg, tmp, csr):
+    """Three checkpoints for the reload checks, written from the host: the
+    live parameters as they are (step 1), the same moved by half their mean
+    magnitude times a seeded normal (step 2), and one of another geometry
+    (the same backbone at 60 x 50)."""
+    from gdmcf_torch.models.registry import build_model
+    live = dict(rec.trainer.model.named_parameters())
+    same = {k: p.detach().cpu() for k, p in live.items()}
+    g = torch.Generator("cuda").manual_seed(11)
+    moved = {}
+    for k, p in live.items():
+        scale = float(p.detach().abs().mean()) or 0.01
+        moved[k] = (p.detach() + 0.5 * scale * torch.randn(
+            p.shape, generator=g, device="cuda")).cpu()
+    dirs = {name: os.path.join(tmp, f"{cfg.backbone}_{name}")
+            for name in ("same", "moved", "other")}
+    t0 = time.perf_counter()
+    write_checkpoint(torch, dirs["same"], same, cfg, 1)
+    write_checkpoint(torch, dirs["moved"], moved, cfg, 2)
+    del same, moved
+    small = build_model(cfg, 60, 50, train_csr=csr[:60, :50],
+                        generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+    write_checkpoint(torch, dirs["other"],
+                     {k: p.detach() for k, p in small.named_parameters()},
+                     cfg, 3)
+    log(f"http checkpoints of {cfg.backbone}: 3 written in "
+        f"{time.perf_counter() - t0:.1f} s ("
+        f"{os.path.getsize(os.path.join(dirs['moved'], 'ckpt_2.pt'))} B "
+        f"each at full size)")
+    return dirs
+
+
+def daemon_data(tmp, csr):
+    """The graph as {train,valid,test}_list.npy for a serve_http daemon;
+    the last user and item get an edge, so data_load infers the full
+    Amazon-Book geometry."""
+    coo = csr.tocoo()
+    edges = np.stack([coo.row, coo.col], 1).astype(np.int64)
+    edges = np.concatenate([edges, [[N_USER - 1, N_ITEM - 1]]])
+    d = os.path.join(tmp, "daemon_data")
+    os.makedirs(d)
+    np.save(os.path.join(d, "train_list.npy"), edges)
+    for name in ("valid", "test"):
+        np.save(os.path.join(d, f"{name}_list.npy"), edges[:100])
+    return d
+
+
+def daemon_phase(root, card, data_dir, ckpt_dir):
+    """(e) `python -m gdmcf_torch.serve_http --device cuda` serving the
+    lightGCN backbone from ``ckpt_dir``: start-up to the first /healthz,
+    one recommend, SIGHUP reloads (params_version 1), SIGTERM exits 0."""
+    import signal
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    log_path = os.path.join(os.path.dirname(data_dir), "daemon.log")
+    cmd = [sys.executable, "-m", "gdmcf_torch.serve_http", "--device",
+           "cuda", "-c", os.path.join(root, "configs", "amazonOneEmbGcn.yaml"),
+           "--backbone", "lightGCN", "--data_path", data_dir,
+           "--ckpt_dir_serve", ckpt_dir, "--host", "127.0.0.1", "--port",
+           str(port)]
+    with open(log_path, "w") as out:
+        t0 = time.perf_counter()
+        daemon = subprocess.Popen(cmd, cwd=root, stdout=out,
+                                  stderr=subprocess.STDOUT,
+                                  env=dict(os.environ, PYTHONPATH=root))
+        try:
+            body = wait_healthz(base, daemon, limit=300)
+            up_s = time.perf_counter() - t0
+            assert body["n_user"] == N_USER and body["n_item"] == N_ITEM
+            assert body["stats"]["params_version"] == 0
+            code, rec_body = get_json(
+                base + f"/recommend?users=0,17,{N_USER - 1}&k=20")
+            assert code == 200, rec_body
+            for row in rec_body["items"]:
+                assert len(set(row)) == 20 and all(0 <= i < N_ITEM
+                                                   for i in row)
+            t1 = time.perf_counter()
+            daemon.send_signal(signal.SIGHUP)
+            deadline = time.time() + 120
+            while get_json(base + "/healthz")[1]["stats"][
+                    "params_version"] != 1:
+                assert time.time() < deadline, "SIGHUP did not reload"
+                time.sleep(0.05)
+            hup_s = time.perf_counter() - t1
+            daemon.send_signal(signal.SIGTERM)
+            rc = daemon.wait(timeout=60)
+        finally:
+            if daemon.poll() is None:
+                daemon.kill()
+                daemon.wait(timeout=30)
+    text = open(log_path).read()
+    assert rc == 0, text[-3000:]
+    assert "SIGHUP reload: {'reloaded': True" in text, text[-3000:]
+    log(f"daemon: python -m gdmcf_torch.serve_http --device cuda (lightGCN, "
+        f"from a checkpoint): launch to the first /healthz {up_s:.2f} s; a "
+        f"recommend answered; SIGHUP reloaded in {hup_s:.2f} s "
+        f"(params_version 1); SIGTERM exited 0 [{card}]")
+    return up_s
+
+
+def http_phase(root, card, torch, csr):
+    """Phase 17: HTTP serving at the Amazon-Book size, lightGCN and the
+    flagship, through make_server in this process: (a) start-up launches
+    the SpMM kernel 2 + 2 times for lightGCN, requests and reloads none;
+    (b) 1, 16 and 64 concurrent clients of 1-user requests, every response
+    equal to rec.recommend; (c) 64 clients through serve_multiproc with 4
+    fronts; (d) a hot reload under 16-client load, a quiet one for its
+    memory, a refused one (409) of another geometry; (e) the daemon
+    (lightGCN). Returns the summaries and the lightGCN launches."""
+    from gdmcf_torch.config import load_config
+    from gdmcf_torch.ops import fused_adamw as FA
+    from gdmcf_torch.ops import spmm as S
+    from gdmcf_torch.serve import Recommender, build_recommender
+    from gdmcf_torch.serve_http import make_server, serve_multiproc
+
+    users = np.random.default_rng(5).choice(N_USER, HTTP_USERS,
+                                            replace=False)
+    tmp = tempfile.mkdtemp(prefix="gdmcf_http_")
+    summary, launches = {}, {}
+    try:
+        for backbone in ("lightGCN", "DNNOneHotEmbeddingGCN"):
+            cfg = load_config(os.path.join(root, "configs",
+                                           "amazonOneEmbGcn.yaml"),
+                              {"backbone": backbone, "device": "cuda"})
+            S.reset_launch_counts()
+            FA.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = build_recommender(cfg, None, csr, N_USER, N_ITEM,
+                                    serve_batch=256, k_max=100)
+            torch.cuda.synchronize()
+            start = dict(S.LAUNCHES)
+            log(f"http {backbone}: build_recommender {time.perf_counter() - t0:.1f}"
+                f" s, launches {start}")
+            want = rec.recommend(users, k=20)[0]
+            old = {int(u): [row.tolist()] for u, row in zip(users, want)}
+            srv = make_server(rec, "127.0.0.1", 0)
+            thread = threading.Thread(target=srv.serve_forever, daemon=True)
+            thread.start()
+            base = f"http://127.0.0.1:{srv.server_address[1]}"
+            res = {}
+            try:
+                wait_healthz(base)
+                stats = srv.coalescer.stats
+                for clients, count in HTTP_CLIENTS.items():
+                    s0 = dict(stats)
+                    r = finish_load(start_load(base, clients, count, 0,
+                                               users))
+                    res[f"{clients} clients"] = load_summary(
+                        r, old, f"{backbone} {clients} clients", card, s0,
+                        dict(stats))
+                # (c) 4 pre-forked fronts
+                port = free_port()
+                backend, fronts = serve_multiproc(rec, "127.0.0.1", port, 4)
+                try:
+                    t0 = time.perf_counter()
+                    wait_healthz(f"http://127.0.0.1:{port}")
+                    fronts_up = time.perf_counter() - t0
+                    s0 = dict(backend.coalescer.stats)
+                    r = finish_load(start_load(f"http://127.0.0.1:{port}",
+                                               64, HTTP_CLIENTS[64], 0,
+                                               users))
+                    res["64 clients, 4 fronts"] = load_summary(
+                        r, old, f"{backbone} 64 clients, 4 fronts (up in "
+                        f"{fronts_up:.2f} s)", card, s0,
+                        dict(backend.coalescer.stats))
+                    assert all(p.poll() is None for p in fronts)
+                finally:
+                    backend.close()
+                    for p in fronts:
+                        p.terminate()
+                    for p in fronts:
+                        p.wait(timeout=30)
+                # (d) reloads
+                dirs = http_checkpoints(torch, rec, cfg, tmp, csr)
+                n_bytes = sum(p.numel() * p.element_size()
+                              for p in rec.trainer.model.parameters())
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                code, body = get_json(base + "/reload", json.dumps(
+                    {"ckpt_dir": dirs["same"]}).encode())
+                quiet_s = time.perf_counter() - t0
+                assert code == 200 and body["params_version"] == 1, body
+                growth = torch.cuda.max_memory_allocated() - before
+                after = torch.cuda.memory_allocated() - before
+                log(f"http {backbone} quiet reload: {quiet_s:.3f} s, peak "
+                    f"device memory growth {growth / 2**30:.3f} GiB against "
+                    f"one parameter set of {n_bytes / 2**30:.3f} GiB "
+                    f"({growth / n_bytes:.3f} sets), held after "
+                    f"{after / 2**30:.3f} GiB [{card}]")
+                assert rec.recommend(users[:64], k=20)[0].tolist() == \
+                    want[:64].tolist(), "the same parameters moved the ids"
+                # under 16 clients: every response is the old or the new
+                # ids, and none fails; the fresh recommender's own start-up
+                # launches are not the server's
+                served = dict(S.LAUNCHES)
+                fresh = Recommender.from_checkpoint(cfg, dirs["moved"], csr,
+                                                    serve_batch=256)
+                new = fresh.recommend(users, k=20)[0]
+                S.LAUNCHES.update(served)
+                del fresh
+                gc.collect()
+                torch.cuda.empty_cache()
+                both = {int(u): [o[0], n.tolist()]
+                        for (u, o), n in zip(old.items(), new)}
+                s0 = dict(stats)
+                load = start_load(base, 16, 0, HTTP_RELOAD_LOAD_S, users)
+                time.sleep(HTTP_RELOAD_LOAD_S / 3)
+                t_a = time.time()
+                code, body = get_json(base + "/reload", json.dumps(
+                    {"ckpt_dir": dirs["moved"]}).encode())
+                t_b = time.time()
+                assert code == 200 and body["params_version"] == 2, body
+                r = finish_load(load)
+                res["reload under 16 clients"] = load_summary(
+                    r, both, f"{backbone} 16 clients across a reload", card,
+                    s0, dict(stats), what="every response carries the ids "
+                    "of the old or of the new parameters, none failed")
+                during = [q[2] for q in r["requests"]
+                          if q[1] < t_b and q[1] + q[2] / 1e3 > t_a]
+                late = [q for q in r["requests"] if q[1] > t_b]
+                assert late and all(q[3] == both[q[0]][1] for q in late), \
+                    "a request after the reload got the old ids"
+                changed = int(sum(o[0] != n.tolist()
+                                  for o, n in zip(old.values(), new)))
+                log(f"http {backbone} reload under 16 clients: "
+                    f"{t_b - t_a:.3f} s, {len(during)} requests overlapped "
+                    f"it, the longest {max(during, default=0.0):.3f} ms; "
+                    f"{len(late)} requests after it all carry the ids of a "
+                    f"fresh Recommender.from_checkpoint; {changed} of "
+                    f"{len(users)} users' ids changed [{card}]")
+                res["reload"] = {"quiet_s": quiet_s, "loaded_s": t_b - t_a,
+                                 "longest_during_ms": max(during,
+                                                          default=0.0),
+                                 "peak_growth_bytes": growth,
+                                 "param_bytes": n_bytes}
+                # a checkpoint of another geometry: 409, the new ids stay
+                code, body = get_json(base + "/reload", json.dumps(
+                    {"ckpt_dir": dirs["other"]}).encode())
+                assert code == 409 and "geometry" in body["error"], body
+                health = get_json(base + "/healthz")[1]
+                assert health["stats"]["params_version"] == 2
+                assert rec.recommend(users[:64], k=20)[0].tolist() == \
+                    new[:64].tolist()
+                log(f"http {backbone}: another geometry's checkpoint got "
+                    f"409 ({body['error'][:80]}...), params_version stays 2 "
+                    f"and the loaded parameters keep serving")
+                launches[backbone] = dict(S.LAUNCHES)
+                log(f"http {backbone}: launches after start-up, "
+                    f"{sum(res[k]['requests'] for k in res if 'clients' in k)}"
+                    f" requests and 3 reloads {launches[backbone]}, AdamW "
+                    f"{FA.LAUNCHES['fused_adamw']}")
+                assert launches[backbone] == start
+                assert FA.LAUNCHES["fused_adamw"] == 0
+                if backbone == "lightGCN":
+                    assert start == {"spmm_rows_fwd": 2, "spmm_rows_t": 2}
+                    res["daemon_up_s"] = daemon_phase(
+                        root, card, daemon_data(tmp, csr), dirs["moved"])
+                else:
+                    assert not any(start.values())
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                thread.join(timeout=30)
+            summary[backbone] = res
+            del rec, srv
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = os.path.join(root, "chiprun_out", "torch_http.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as fh:
+        json.dump({"device": card, "backbones": summary}, fh, indent=1)
+    return summary, launches["lightGCN"]
+
+
+def variant_gates_phase(root, card, torch, data_dir):
+    """Phase 18: the legacy and ablation golden gates (3 seeds x 150
+    epochs of DNN at OneHotMatrix 0, parity_run.py's recipe on the phase-8
+    set), judged by the unchanged benchmarks/golden_parity.py against
+    docs/parity_data/ref_{legacy,ablation}_s*.json and, pooled with them,
+    the JAX package's recorded runs (VARIANT_GATES). Returns the K1
+    launches by gate."""
+    gates, failed = {}, []
+    tmp = tempfile.mkdtemp(prefix="gdmcf_variants_")
+    try:
+        for variant, pattern, jax in VARIANT_GATES:
+            t0 = time.perf_counter()
+            ours, gates[variant] = run_gate(
+                root, card, torch, f"variant_{variant}", data_dir,
+                GOLDEN_EPOCHS, dict(VARIANT_RECIPE, diffusion_variant=variant))
+            if judge_gate(root, tmp, variant, ours, pattern,
+                          jax)["parity"] is not True:
+                failed.append(variant)
+            log(f"gate {variant}: {time.perf_counter() - t0:.1f} s, "
+                f"fused_adamw launches {gates[variant]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert not failed, f"variant gates failed: {failed}"
+    return gates
+
+
+def variant_epochs_phase(root, card, torch, csr):
+    """Phase 18, second part: one train_epoch (272 steps) of DNN at
+    OneHotMatrix 0 under each variant at the Amazon-Book width, 6 AdamW
+    launches a step, then one served batch with the request checks."""
+    from gdmcf_torch.config import load_config
+    from gdmcf_torch.data.native import NativeCSR
+    from gdmcf_torch.ops import fused_adamw as FA
+    from gdmcf_torch.ops import spmm as S
+    from gdmcf_torch.serve import build_recommender
+    from gdmcf_torch.train.trainer import Trainer
+
+    dataset = NativeCSR.from_scipy(csr)
+    launches = {}
+    for variant in ("legacy", "ablation"):
+        cfg = load_config(os.path.join(root, "configs", "amazonOneEmbGcn.yaml"),
+                          {"device": "cuda", "backbone": "DNN",
+                           "OneHotMatrix": 0, "diffusion_variant": variant})
+        trainer = Trainer(cfg, N_USER, N_ITEM)
+        state = trainer.init_state()
+        assert trainer.diffusion.variant == variant
+        before = {k: p.detach().clone() for k, p in state.params.items()}
+        FA.reset_launch_counts()
+        S.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, total = trainer.train_epoch(state, dataset,
+                                           np.random.default_rng(0))
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        launches[variant] = FA.LAUNCHES["fused_adamw"]
+        steps = N_USER // cfg.batch_size   # 272
+        assert state.step == steps and np.isfinite(total)
+        assert launches[variant] == 6 * steps, launches
+        assert not any(S.LAUNCHES.values())
+        for k, p in state.params.items():
+            assert bool((p.detach() != before[k]).any()), f"{k} did not move"
+        del before
+        FA.reset_launch_counts()
+        rec = build_recommender(cfg, None, csr, N_USER, N_ITEM,
+                                trainer=trainer, serve_batch=256, k_max=100)
+        check_requests(rec, csr, N_ITEM, f"DNN {variant}")
+        assert FA.LAUNCHES["fused_adamw"] == 0
+        log(f"DNN {variant} train_epoch at the Amazon-Book width: {steps} "
+            f"steps in {epoch_s:.2f} s, loss sum {total:.6e}, fused_adamw "
+            f"launches {launches[variant]} (6 a step) [{card}]")
+        del rec, trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def fresh_seed_gates(root, card, torch):
+    """--fresh-seed-gates: the LightGCN gate (phase 13, dense and hybrid)
+    at FRESH_LGN_SEEDS and G4 (DNN at OneHotMatrix 0) at FRESH_G4_SEEDS,
+    judged against the same bands as in phases 13 and 16 (G4 against the
+    reference alone and pooled with the JAX package's runs). Reports the
+    verdicts; fails only if a run does not complete."""
+    from gdmcf_torch.data.loader import generate_synthetic_dataset
+
+    results = lightgcn_gate_phase(root, card, torch, seeds=FRESH_LGN_SEEDS,
+                                  out_name="torch_lightgcn_parity_fresh.json",
+                                  require=False)
+    for mode, res in results.items():
+        log(f"fresh seeds {list(FRESH_LGN_SEEDS)}, LightGCN gate {mode}: "
+            f"parity {res['parity']} " + json.dumps(res["checks"]))
+    tmp = tempfile.mkdtemp(prefix="gdmcf_fresh_")
+    try:
+        data = os.path.join(tmp, "round3")
+        generate_synthetic_dataset(data, **ROUND3_GATE_SET)
+        label, _, cfg_kw, epochs, pattern, (name, _) = BACKBONE_GATES[3]
+        ours, launches = run_gate(root, card, torch, f"{label}_fresh", data,
+                                  epochs, cfg_kw, seeds=FRESH_G4_SEEDS)
+        refs = parity_refs(root, pattern)
+        alone = golden_parity(root, ours, refs)
+        pooled = golden_parity(root, ours, refs + split_runs(
+            os.path.join(root, "docs", "parity_data", name),
+            tempfile.mkdtemp(dir=tmp)))
+        log(f"fresh seeds {list(FRESH_G4_SEEDS)}, G4 against {pattern} "
+            f"alone: " + json.dumps(alone))
+        log(f"fresh seeds {list(FRESH_G4_SEEDS)}, G4 against {pattern} and "
+            f"{name} pooled: " + json.dumps(pooled))
+        log(f"fresh-seed verdicts: LightGCN dense "
+            f"{results['dense']['parity']}, hybrid "
+            f"{results['hybrid']['parity']}; G4 reference-only "
+            f"{alone['parity']}, pooled {pooled['parity']}; G4 K1 launches "
+            f"{launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def precision_pairs(root, card, torch):
+    """--precision-pairs: G4 (round-3 set) at seeds 0-5 and the legacy
+    gate (phase-8 set) at seeds 0-2, each seed run with TF32 matmuls (the
+    default compute_dtype bfloat16) and in full float32 (compute_dtype
+    float32), everything else equal (the same seed draws the same numbers
+    on the card): the tail losses side by side, and each precision's
+    verdict against the reference's band."""
+    from gdmcf_torch.data.loader import generate_synthetic_dataset
+
+    tmp = tempfile.mkdtemp(prefix="gdmcf_pairs_")
+    try:
+        sets = {"round3": os.path.join(tmp, "round3"),
+                "golden": os.path.join(tmp, "golden")}
+        generate_synthetic_dataset(sets["round3"], **ROUND3_GATE_SET)
+        generate_synthetic_dataset(sets["golden"], seed=0)
+        for label, data, cfg_kw, pattern, seeds in (
+                ("G4_oh0", "round3", BACKBONE_GATES[3][2], "ref_oh0_s*.json",
+                 (0, 1, 2, 3, 4, 5)),
+                ("legacy", "golden", dict(VARIANT_RECIPE,
+                                          diffusion_variant="legacy"),
+                 "ref_legacy_s*.json", GOLDEN_SEEDS)):
+            tails = {}
+            for dtype in ("bfloat16", "float32"):
+                ours, _ = run_gate(root, card, torch, f"{label}_{dtype}",
+                                   sets[data], GOLDEN_EPOCHS,
+                                   dict(cfg_kw, compute_dtype=dtype),
+                                   seeds=seeds)
+                verdict = golden_parity(root, ours, parity_refs(root, pattern))
+                with open(ours) as fh:
+                    # golden_parity.py's tail: the last quarter's mean
+                    tails[dtype] = [float(np.mean(r["losses"][-max(
+                        1, int(len(r["losses"]) * 0.25)):]))
+                        for r in json.load(fh)["runs"]]
+                log(f"precision pairs {label}, compute_dtype {dtype} (TF32 "
+                    f"{'on' if dtype == 'bfloat16' else 'off'}): tail losses "
+                    f"{[round(t, 4) for t in tails[dtype]]}, against "
+                    f"{pattern}: " + json.dumps(verdict["checks"]))
+            diff = np.array(tails["bfloat16"]) - np.array(tails["float32"])
+            log(f"precision pairs {label}: TF32 minus float32 tail loss by "
+                f"seed {[round(float(d), 4) for d in diff]}, mean "
+                f"{float(diff.mean()):.4f} [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import argparse
 
+    if sys.argv[1:2] == ["--http-client"]:   # phase 17's load generator
+        return http_client(sys.argv[2:])
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="FILE", default=None,
                         help="write torch.profiler tables of 5 lightGCN "
                              "dispatches, 5 flagship train steps, 5 "
                              "flagship dispatches and 5 BPR steps, and time "
                              "the SpMM kernel at several segment lengths")
+    parser.add_argument("--fresh-seed-gates", action="store_true",
+                        help="run only the LightGCN gate at seeds 6-8 and "
+                             "G4 at seeds 3-8 and report their verdicts")
+    parser.add_argument("--precision-pairs", action="store_true",
+                        help="run only G4 at seeds 0-5 and the legacy gate "
+                             "at seeds 0-2 with TF32 on and off, paired")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1835,6 +2519,16 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     card = card_line()
     t_start = time.perf_counter()
+    if args.fresh_seed_gates or args.precision_pairs:
+        S.build_kernels()
+        FA.build_kernel()
+        log(card)
+        (fresh_seed_gates if args.fresh_seed_gates
+         else precision_pairs)(root, card, torch)
+        log(f"chip_smoke (one option's gates only): "
+            f"{time.perf_counter() - t_start:.1f} s")
+        log(card)
+        return 0
 
     # 1. build
     t0 = time.perf_counter()
@@ -1947,7 +2641,6 @@ def main() -> int:
                                                          csr)
         entry["max_abs_err"] = max(entry["max_abs_err"], dnn_err)
         log(f"DNN phase: {time.perf_counter() - t0:.1f} s")
-        del csr
         gc.collect()
 
         # 16. the backbone golden gates
@@ -1956,11 +2649,28 @@ def main() -> int:
         entry["launches_backbone_gates"] = sum(gates.values())
         entry["launches_by_gate"] = gates
         log(f"backbone gates phase: {time.perf_counter() - t0:.1f} s")
+
+        # 17. HTTP serving, lightGCN and the flagship
+        t0 = time.perf_counter()
+        _, http_launches = http_phase(root, card, torch, csr)
+        for k in kernels[:2]:
+            k["launches_http_startup"] = http_launches[k["name"]]
+            k["launches_http_requests_and_reloads"] = 0
+        log(f"http phase: {time.perf_counter() - t0:.1f} s")
+
+        # 18. the legacy and ablation gates, then their Amazon-width epochs
+        t0 = time.perf_counter()
+        entry["launches_variant_gates"] = variant_gates_phase(
+            root, card, torch, data_dir)
+        entry["launches_variant_epochs"] = variant_epochs_phase(
+            root, card, torch, csr)
+        del csr
+        log(f"variant phase: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    # 17. results
-    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of phases 1-16")
+    # 19. results
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of phases 1-18")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -7,17 +7,21 @@ to find; the port imports nothing of that package or of JAX.
 Device policy: entry points run on ``cuda`` unless the caller asks for
 ``device="cpu"``. Without a CUDA device and without that request they raise;
 they never quietly run on the CPU.
+
+Importing the package loads no torch: the pre-forked HTTP fronts
+(``serve_front``) import it and must stay light.
 """
 
 from __future__ import annotations
 
-import torch
-
 __version__ = "0.1.0"
 
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` means ``cuda``. A CUDA request without a CUDA device raises."""
+def resolve_device(device=None):
+    """``None`` means ``cuda``. A CUDA request without a CUDA device raises.
+    Returns a ``torch.device``."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -1,5 +1,6 @@
-"""Graph-diffusion engine, discrete class: corruption, the training loss
-with importance-sampled timesteps, and the reverse sampler.
+"""Graph-diffusion engine: corruption, the training loss with
+importance-sampled timesteps, and the reverse sampler, for the three
+variants of the JAX package.
 
 Port of the JAX package's ``diffusion/engine.py``. The 2-state discrete
 channel is a per-cell Bernoulli on the closed-form probability of state 1;
@@ -16,8 +17,23 @@ both).
 Fidelity quirks kept (``fidelity=True``): alpha_bar of the discrete channel
 is ``ts / batch_size`` (clipped to [0, 1]); discrete noise only deletes;
 timesteps are drawn twice per training step (the second draw drives the
-model, the weight and the Lt update). The ``legacy`` and ``ablation``
-variants are not ported yet.
+model, the weight and the Lt update).
+
+Variants (``Diffusion.variant``):
+
+* ``discrete`` (the reference's ``GaussianDiffusionDiscrete``, the live
+  class): the discrete one-hot corruption and the degree-guided growth of a
+  synthetic graph in the reverse loop.
+* ``legacy`` (``GaussianDiffusion``): the one-hot channel is a continuous
+  ``q_sample`` of the one-hot at its own, independent timestep draw; no
+  contrastive loss; the reverse loop iterates the posterior with no graph.
+* ``ablation`` (``GaussianDiffusionAblation``): the corruption of the
+  discrete class, but the model sees the clean ``x_start`` and the clean
+  one-hot, only the graph is corrupted, and the reverse loop always applies
+  the degree gate.
+
+``noise_scale`` 0 builds no coefficient tables: the reverse path then
+iterates the model on its own output with no graph, for every variant.
 """
 
 from __future__ import annotations
@@ -51,6 +67,10 @@ class PSampleDraws(NamedTuple):
     sprinkle: Sequence[torch.Tensor] = ()
     gate: Sequence[torch.Tensor] = ()
     noise: Sequence[torch.Tensor] = ()
+    # legacy: the one-hot channel starts as a q_sample of the one-hot, from
+    # these normals [B, n, 2] in place of ``init_u``; its reverse loop draws
+    # only ``noise``
+    init_noise_u: Optional[torch.Tensor] = None
 
 
 class TimestepDraws(NamedTuple):
@@ -63,13 +83,28 @@ class TimestepDraws(NamedTuple):
 class TrainDraws(NamedTuple):
     """Pre-drawn randomness for ``training_losses``, in its order: the
     one-hot channel's timesteps and corruption uniforms [B, n], the model's
-    timesteps and normals [B, n], then the model's dropout uniforms."""
+    timesteps and normals [B, n], then the model's dropout uniforms. The
+    legacy variant corrupts the one-hot channel with ``noise_u`` ([B, n, 2]
+    normals) at the ``ts_u`` draw instead of ``corrupt_u``."""
 
     ts_u: Optional[TimestepDraws] = None
     corrupt_u: Optional[torch.Tensor] = None
     ts: Optional[TimestepDraws] = None
     noise: Optional[torch.Tensor] = None
     dropout: Sequence[torch.Tensor] = ()
+    noise_u: Optional[torch.Tensor] = None
+
+
+class LegacyNoiseDraws(NamedTuple):
+    """Pre-drawn randomness for ``legacy_apply_noise``, in the JAX
+    package's key order: the keep uniforms [B, n], the uniform item indices
+    [B, n] (integers in [0, N)), the threshold (an integer in
+    [int(0.8 N), N]) and the blend uniforms [B, n]."""
+
+    pick: torch.Tensor
+    uniform_j: torch.Tensor
+    thresh: torch.Tensor
+    mix: torch.Tensor
 
 
 class LtState(NamedTuple):
@@ -90,6 +125,37 @@ class LtState(NamedTuple):
 def mean_flat(x: torch.Tensor) -> torch.Tensor:
     """Mean over all non-batch dimensions."""
     return x.reshape(x.shape[0], -1).mean(dim=1)
+
+
+def mix_tensors(t1: torch.Tensor, t2: torch.Tensor, mix_prob: float = 0.5,
+                generator: Optional[torch.Generator] = None,
+                u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Bernoulli blend: each cell comes from ``t1`` with probability
+    ``mix_prob``, else from ``t2`` (``u``: pre-drawn uniforms)."""
+    assert t1.shape == t2.shape
+    mask = (_uniform(t1.shape, t1, generator, u) < mix_prob).to(t1.dtype)
+    return mask * t1 + (1.0 - mask) * t2
+
+
+def absorbing_qt_bar(alpha_bar_t: torch.Tensor,
+                     num_classes: int) -> torch.Tensor:
+    """Absorbing-state transition matrices Q_bar = a I + (1 - a) 1 (the
+    reference's unnormalized helper, kept for API parity): [B] -> [B, C,
+    C]."""
+    a = alpha_bar_t.reshape(-1, 1, 1)
+    eye = torch.eye(num_classes, dtype=a.dtype, device=a.device)[None]
+    return a * eye + (1.0 - a) * torch.ones(
+        (1, num_classes, num_classes), dtype=a.dtype, device=a.device)
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2) -> torch.Tensor:
+    """KL divergence between two diagonal Gaussians, elementwise (defined
+    but unused on the reference's live path, kept for API parity)."""
+    mean1, logvar1, mean2, logvar2 = (
+        torch.as_tensor(v, dtype=torch.float32)
+        for v in (mean1, logvar1, mean2, logvar2))
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + (mean1 - mean2) ** 2 * torch.exp(-logvar2))
 
 
 # model(x, t, x_U, index=..., graph=..., rcloss=..., generator=...,
@@ -122,16 +188,15 @@ class Diffusion:
     fidelity: bool = True
     history_num_per_term: int = 10
     uniform_prob: float = 0.001
+    variant: str = "discrete"    # discrete | legacy | ablation
 
     @staticmethod
     def create(cfg, variant: str = "discrete", device=None,
                index_in: bool = True) -> "Diffusion":
         """``index_in``: the model's ``needs_index``; only such a model is
         asked for the contrastive loss, as in the reference."""
-        if variant != "discrete":
-            raise NotImplementedError(
-                f"diffusion variant {variant!r} is not ported yet (ROADMAP.md"
-                " §A item 6, legacy and ablation variants)")
+        if variant not in ("discrete", "legacy", "ablation"):
+            raise ValueError(f"unknown diffusion variant {variant!r}")
         mean_type = (MeanType.START_X if cfg.mean_type == "x0"
                      else MeanType.EPSILON)
         coeffs = None
@@ -145,7 +210,7 @@ class Diffusion:
             coeffs=coeffs, cat_one_hot=(cfg.OneHotMatrix == 2),
             index_in=index_in, user_guided=bool(cfg.user_guided),
             fidelity=cfg.fidelity,
-            history_num_per_term=cfg.history_num_per_term)
+            history_num_per_term=cfg.history_num_per_term, variant=variant)
 
     # -- continuous channel ------------------------------------------------
     def q_sample(self, x_start, t, noise):
@@ -200,6 +265,55 @@ class Diffusion:
         c1 = x_binary * s
         c0 = (1.0 - x_binary) * (1.0 - s)
         return torch.stack([c0, c1], dim=-1)
+
+    # -- the legacy class's n-state corruption -----------------------------
+    def legacy_apply_noise(self, ts: torch.Tensor, x: torch.Tensor,
+                           num_nodes: Optional[int] = None,
+                           x_base: Optional[torch.Tensor] = None,
+                           generator: Optional[torch.Generator] = None,
+                           draws: Optional[LegacyNoiseDraws] = None):
+        """The legacy class's n-state corruption in closed form, as the JAX
+        package implements the reference's intent (its own code cannot
+        run: a [B, 2, 2] alpha is broadcast against an N x N identity).
+        Under Q_bar = a I_N + (1 - a) 1, an occupied cell (b, i) keeps its
+        own index i with probability a / (a + N (1 - a)), else takes a
+        uniform index in [0, N); an empty cell takes a uniform index (the
+        a -> 0 limit, where the reference's multinomial would raise). The
+        index is binarized by the reference's threshold quirk, index >
+        randint(0.8 N, N], and blended with ``x`` at p 0.8 (or with
+        ``x_base`` at p 0.99) by ``mix_tensors``. On nothing's training
+        path; O(B N), where the reference would build [B, N, N]."""
+        n = x.shape[1] if num_nodes is None else num_nodes
+        dev = x.device
+        a = self._alpha_bar_discrete(ts, x.shape[0])[:, None]   # ts/B quirk
+        if draws is None:
+            pick = torch.rand(x.shape, generator=generator, device=dev)
+            uniform_j = torch.randint(0, n, x.shape, generator=generator,
+                                      device=dev)
+            thresh = torch.randint(int(n * 0.8), n + 1, (),
+                                   generator=generator, device=dev)
+            mix = torch.rand(x.shape, generator=generator, device=dev)
+        else:
+            pick, mix = (draws.pick.to(dev, torch.float32),
+                         draws.mix.to(dev, torch.float32))
+            uniform_j = draws.uniform_j.to(dev).long()
+            thresh = draws.thresh.to(dev).long()
+        keep = pick < a / (a + n * (1.0 - a))
+        own_j = torch.arange(x.shape[1], device=dev)[None, :].expand(x.shape)
+        sampled = torch.where(keep & (x > 0.5), own_j, uniform_j)
+        x_t = (sampled > thresh).to(x.dtype)
+        if x_base is None:
+            return mix_tensors(x, x_t, 0.8, u=mix)
+        return mix_tensors(x_base, x_t, 0.99, u=mix)
+
+    def _continuous_onehot(self, ts, x_start, generator, noise_u):
+        """The legacy one-hot channel: a q_sample of the clean one-hot
+        [B, n, 2] at ``ts`` (the clean one-hot at noise_scale 0)."""
+        x_su = torch.stack([1.0 - x_start, x_start], dim=-1)
+        noise_u = _normal(x_su.shape, x_start, generator, noise_u)
+        if self.noise_scale == 0.0:
+            return x_su
+        return self.q_sample(x_su, ts, noise_u)
 
     # -- timestep importance sampling --------------------------------------
     def sample_timesteps(self, lt: LtState, batch_size: int,
@@ -283,17 +397,26 @@ class Diffusion:
                         reweight: bool = True,
                         generator: Optional[torch.Generator] = None,
                         draws: Optional[TrainDraws] = None):
-        """(per-example loss [B], new LtState, aux dict). Draws in the JAX
-        package's order: the one-hot channel's timesteps, its corruption,
-        the model's timesteps, the noise, then the model's dropout."""
+        """(per-example loss [B], new LtState, aux dict). Own draws: the
+        one-hot channel's timesteps and corruption, the model's timesteps,
+        the noise, then the model's dropout (legacy: the one-hot channel's
+        after the noise).
+
+        legacy: the one-hot channel is a continuous q_sample of the one-hot
+        at its own timestep draw, independent of the model's (the
+        reference's legacy class draws twice against the same Lt state),
+        and no contrastive loss is asked for. ablation: the model sees the
+        clean rows and the clean one-hot; only the graph is the corrupted
+        one-hot."""
         if self.coeffs is None and reweight:
             raise ValueError(
                 "noise_scale=0 builds no diffusion coefficient tables; "
                 "training requires reweight=False in that mode")
         draws = draws or TrainDraws()
         B = x_start.shape[0]
+        legacy = self.variant == "legacy"
         x_tU = None
-        if self.cat_one_hot:
+        if self.cat_one_hot and not legacy:
             ts_u, _ = self.sample_timesteps(lt, B, generator, draws.ts_u)
             x_tU = self.corrupt_discrete(ts_u, x_start, generator,
                                          draws.corrupt_u)
@@ -301,10 +424,19 @@ class Diffusion:
         noise = _normal(x_start.shape, x_start, generator, draws.noise)
         x_t = (self.q_sample(x_start, ts, noise) if self.noise_scale != 0.0
                else x_start)
+        if self.cat_one_hot and legacy:
+            ts_u, _ = self.sample_timesteps(lt, B, generator, draws.ts_u)
+            x_tU = self._continuous_onehot(ts_u, x_start, generator,
+                                           draws.noise_u)
         # the contrastive loss is requested on the indexIn path only
-        model_output, closs = model(x_t, ts, x_tU, index=index, graph=x_tU,
-                                    rcloss=self.index_in and self.cat_one_hot,
-                                    generator=generator,
+        rcloss = self.index_in and self.cat_one_hot and not legacy
+        if self.variant == "ablation":
+            x_in = x_start
+            xu_in = torch.stack([1.0 - x_start, x_start], dim=-1)
+        else:
+            x_in, xu_in = x_t, x_tU
+        model_output, closs = model(x_in, ts, xu_in, index=index, graph=x_tU,
+                                    rcloss=rcloss, generator=generator,
                                     dropout_u=draws.dropout)
         target = x_start if self.mean_type == MeanType.START_X else noise
         assert model_output.shape == target.shape == x_start.shape
@@ -338,18 +470,20 @@ class Diffusion:
                  sampling_noise: bool = False,
                  generator: Optional[torch.Generator] = None,
                  draws: Optional[PSampleDraws] = None) -> torch.Tensor:
-        """Full reverse loop with synthetic-graph growth; returns scores
-        [B, n]."""
+        """The reverse loop; returns scores [B, n]. discrete: with the
+        synthetic-graph growth; ablation: the same growth with the degree
+        gate always on, and the clean rows and one-hot into the model and
+        the posterior; legacy: the posterior iterated with no graph;
+        noise_scale 0 (any variant): the model iterated on its own output
+        with no graph."""
         assert sampling_steps <= self.steps, "Too much steps in inference."
         if sampling_steps > 0 and self.coeffs is None:
             raise ValueError("noise_scale=0 supports only sampling_steps=0")
-        if self.noise_scale == 0.0:
-            raise NotImplementedError(
-                "the noise_scale=0 reverse path is not ported yet (ROADMAP.md"
-                " §A item 6)")
         draws = draws or PSampleDraws()
         B, n = x_start.shape
         dev = x_start.device
+        legacy = self.variant == "legacy"
+        ablation = self.variant == "ablation"
 
         x_tU = None
         if self.cat_one_hot:
@@ -358,8 +492,11 @@ class Diffusion:
             else:
                 t0 = torch.full((B,), sampling_steps - 1, dtype=torch.long,
                                 device=dev)
-                x_tU = self.corrupt_discrete(t0, x_start, generator,
-                                             draws.init_u)
+                x_tU = (self._continuous_onehot(t0, x_start, generator,
+                                                draws.init_noise_u)
+                        if legacy else
+                        self.corrupt_discrete(t0, x_start, generator,
+                                              draws.init_u))
         if sampling_steps == 0:
             x_t = x_start
         else:
@@ -368,37 +505,63 @@ class Diffusion:
             x_t = self.q_sample(x_start, t0, _normal(
                 x_start.shape, x_start, generator, draws.init_c))
 
+        def step_t(i):
+            return torch.full((B,), i, dtype=torch.long, device=dev)
+
+        if self.noise_scale == 0.0:
+            # no coefficient tables: iterate the model on its own output
+            for i in range(self.steps - 1, -1, -1):
+                x_t, _ = model(x_t, step_t(i), x_tU, index=index, graph=None)
+            return x_t
+
+        def posterior(x_in, t, model_output, s):
+            if self.mean_type == MeanType.START_X:
+                pred_xstart = model_output
+            else:
+                pred_xstart = self.predict_xstart_from_eps(x_in, t,
+                                                           model_output)
+            mean = self.q_posterior_mean(pred_xstart, x_in, t)
+            if not sampling_noise:
+                return mean
+            nz = (t != 0).to(mean.dtype).reshape(-1, *([1] * (mean.ndim - 1)))
+            noise = _normal(mean.shape, mean, generator,
+                            draws.noise[s] if draws.noise else None)
+            log_var = extract(self.coeffs.posterior_log_variance_clipped,
+                              t, mean.ndim)
+            return mean + nz * torch.exp(0.5 * log_var) * noise
+
+        if legacy:
+            for s, i in enumerate(range(self.steps - 1, -1, -1)):
+                t = step_t(i)
+                model_output, _ = model(x_t, t, x_tU, index=index,
+                                        graph=None)
+                x_t = posterior(x_t, t, model_output, s)
+            return x_t
+
         # ALWAYS-ON REPAIR: an all-zero batch would divide by zero in the
         # reference; the floor disables the degree gate for it instead
         deg = x_start.sum(dim=1)
         deg_p = deg / deg.max().clamp_min(1e-12)
+        if ablation:
+            # the model and the posterior see the clean rows and one-hot;
+            # only the grown graph varies from step to step
+            x_tU = torch.stack([1.0 - x_start, x_start], dim=-1)
         g = torch.zeros_like(x_start)
         for s, i in enumerate(range(self.steps - 1, -1, -1)):
-            t = torch.full((B,), i, dtype=torch.long, device=dev)
+            t = step_t(i)
             p1 = self.discrete_p_one(self._alpha_bar_discrete(t, B), g)
             u = _uniform((B, n), x_start, generator,
                          draws.sprinkle[s] if draws.sprinkle else None)
             grown = u < p1
-            if self.user_guided:
+            # the ablation class applies the degree gate always; the live
+            # class honors user_guided
+            if self.user_guided or ablation:
                 ug = _uniform((B,), x_start, generator,
                               draws.gate[s] if draws.gate else None)
                 grown = grown & (ug < deg_p)[:, None]
             g = torch.logical_or(g > 0.5, grown).to(x_start.dtype)
             graph = torch.stack([1.0 - g, g], dim=-1)
-            model_output, _ = model(x_t, t, x_tU, index=index, graph=graph)
-            if self.mean_type == MeanType.START_X:
-                pred_xstart = model_output
-            else:
-                pred_xstart = self.predict_xstart_from_eps(x_t, t,
-                                                           model_output)
-            mean = self.q_posterior_mean(pred_xstart, x_t, t)
-            if sampling_noise:
-                nz = (t != 0).to(x_t.dtype).reshape(-1, *([1] * (x_t.ndim - 1)))
-                noise = _normal(x_t.shape, x_t, generator,
-                                draws.noise[s] if draws.noise else None)
-                log_var = extract(self.coeffs.posterior_log_variance_clipped,
-                                  t, x_t.ndim)
-                x_t = mean + nz * torch.exp(0.5 * log_var) * noise
-            else:
-                x_t = mean
+            x_in = x_start if ablation else x_t
+            model_output, _ = model(x_in, t, x_tU, index=index, graph=graph)
+            x_t = posterior(x_in, t, model_output, s)
         return x_t

@@ -17,9 +17,9 @@ trained ``Trainer`` (``build_recommender(..., trainer=t)``):
 
     rec = Recommender.from_checkpoint(cfg, ckpt_dir, train_csr)
     items, uids = rec.recommend([3, 17, 42], k=20)
+    rec.reload_params()       # hot swap to the newest checkpoint of ckpt_dir
 
-Hot reload of a running recommender (``reload_params``) is ROADMAP.md §A
-item 7.
+``serve_http`` puts an HTTP server and a request coalescer in front of it.
 """
 
 from __future__ import annotations
@@ -50,24 +50,27 @@ class Recommender:
         self.k_max = min(k_max, history.n_item)
         self._generator = torch.Generator(trainer.device).manual_seed(
             trainer.cfg.random_seed + 777)
+        # held around each dispatch's launches and around a reload's swap
         self._lock = threading.Lock()
-        self.ckpt_dir: Optional[str] = None   # set by from_checkpoint
+        # hot reload: the directory to refresh from (set by from_checkpoint),
+        # a version counter surfaced in /healthz, a lock serializing reloads
+        self.ckpt_dir: Optional[str] = None
+        self.params_version = 0
+        self._reload_lock = threading.Lock()
 
     @classmethod
     def from_checkpoint(cls, cfg, ckpt_dir: str, train_csr,
                         serve_batch: int = 256, k_max: int = 100,
                         device=None) -> "Recommender":
-        """A new Trainer whose state is restored from the newest checkpoint
-        in ``ckpt_dir`` (``train/checkpoint.py``)."""
-        from gdmcf_torch.train.checkpoint import Checkpointer
-
+        """A new Trainer whose parameters are those of the newest checkpoint
+        in ``ckpt_dir`` (``train/checkpoint.py``); the optimizer state is
+        neither built nor read."""
         # membership semantics: the history is which items to exclude
         history = NativeCSR.from_scipy(train_csr, strict=False)
         trainer = Trainer(cfg, history.n_user, history.n_item,
                           train_csr=train_csr, device=device)
-        ckpt = Checkpointer(ckpt_dir)
-        ckpt.restore(trainer.init_state())
         rec = cls(trainer, history, serve_batch, k_max)
+        rec._swap(rec._load_params(ckpt_dir, None)[1])
         rec.ckpt_dir = ckpt_dir
         return rec
 
@@ -86,6 +89,71 @@ class Recommender:
         # membership semantics: the history is which items to exclude
         return cls(trainer, NativeCSR.from_scipy(train_csr, strict=False),
                    serve_batch, k_max)
+
+    def _load_params(self, directory: str, step: Optional[int]):
+        """(step, {name: device tensor}) of a checkpoint's parameters,
+        checked name by name against the live ones for shape and dtype.
+        Reads only the parameters (no moments) and allocates one parameter
+        set on the device; runs off the dispatch lock."""
+        from gdmcf_torch.train.checkpoint import Checkpointer
+
+        if not os.path.isdir(directory):
+            raise FileNotFoundError(
+                f"checkpoint directory {directory!r} does not exist")
+        saved_step, saved = Checkpointer(directory).load_params(step)
+        live = dict(self.trainer.model.named_parameters())
+        if set(saved) != set(live):
+            raise ValueError(
+                f"checkpoint at {directory} names parameters "
+                f"{sorted(set(saved) ^ set(live))} that the serving model "
+                "does or does not have: it was trained under another config")
+        for name, p in live.items():
+            t = saved[name]
+            if t.shape != p.shape or t.dtype != p.dtype:
+                raise ValueError(
+                    f"checkpoint at {directory} has {name} {t.dtype} "
+                    f"{tuple(t.shape)}, the serving model {p.dtype} "
+                    f"{tuple(p.shape)}: it was trained under another "
+                    "geometry or config and cannot be swapped in")
+        new = {k: saved[k].to(live[k].device, copy=True) for k in live}
+        if self.trainer.device.type == "cuda":
+            # the copies ran on this thread's stream; a dispatch may run on
+            # another, so they must be done before the swap
+            torch.cuda.current_stream(self.trainer.device).synchronize()
+        return saved_step, new
+
+    def _swap(self, new: Mapping[str, torch.Tensor]) -> None:
+        """Point every parameter at its new tensor, between two dispatches
+        (under the dispatch lock): a dispatch launches all its kernels
+        under that lock, so it reads one set whole, old or new."""
+        with self._lock, torch.no_grad():
+            for name, p in self.trainer.model.named_parameters():
+                p.data = new[name]
+
+    def reload_params(self, ckpt_dir: Optional[str] = None,
+                      step: Optional[int] = None) -> dict:
+        """Swap in the parameters of a checkpoint (the newest in
+        ``ckpt_dir``, default the directory this recommender was loaded
+        from, or ``step``) with no dropped request. The checkpoint is read
+        and copied to the device off the dispatch lock; the swap itself
+        waits only for the dispatch in flight. Raises on a missing or
+        mismatched checkpoint (other names, shapes or dtypes), leaving the
+        live parameters untouched. Buffers derived from the graph (the
+        lightGCN backbone's tables) are not in a checkpoint and stay."""
+        directory = ckpt_dir or self.ckpt_dir
+        if not directory:
+            raise ValueError(
+                "no checkpoint directory: this recommender was built from a "
+                "live state (demo mode); pass ckpt_dir explicitly")
+        with self._reload_lock:
+            loaded_step, new = self._load_params(directory, step)
+            self._swap(new)
+            del new
+            self.params_version += 1
+            self.ckpt_dir = directory
+            return {"reloaded": True, "ckpt_dir": directory,
+                    "step": loaded_step,
+                    "params_version": self.params_version}
 
     def warmup(self) -> None:
         self.recommend(list(range(min(2, self.history.n_user))),
@@ -115,7 +183,9 @@ class Recommender:
     def recommend_batch(self, user_ids: Sequence[int],
                         exclude_rows: np.ndarray) -> np.ndarray:
         """ONE padded dispatch for up to ``serve_batch`` users with a
-        per-row exclude decision; returns [n, k_max] score-sorted ids."""
+        per-row exclude decision; returns [n, k_max] score-sorted ids. The
+        primitive request coalescing builds on: rows with different
+        ``exclude_history`` and ``k`` share a dispatch."""
         cfg = self.trainer.cfg
         user_ids = np.asarray(user_ids, dtype=np.int64)
         if not 0 < user_ids.size <= self.serve_batch:

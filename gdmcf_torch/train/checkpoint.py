@@ -172,5 +172,16 @@ class Checkpointer:
         template.step = int(data["step"])
         return template
 
+    def load_params(self, step: Optional[int] = None):
+        """(step, {name: parameter}) of a checkpoint, the parameters alone
+        as host tensors mapped from the file (``mmap``): the moments,
+        stored beside them, are never read. What a server reloads."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        data = torch.load(self._path(step), map_location="cpu",
+                          weights_only=True, mmap=True)
+        return int(data["step"]), data["params"]
+
     def close(self) -> None:
         self.wait()   # a deferred sidecar must not die with the object

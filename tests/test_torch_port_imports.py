@@ -130,9 +130,9 @@ def test_serve_cli_device_flag_and_checkpoint_refusal(tmp_path, capsys):
 
 
 def test_other_backbones_name_their_roadmap_item():
-    """Every backbone name builds; an unknown one raises; what is still
-    unported (the legacy and ablation diffusion variants, the noise_scale=0
-    reverse path) names its ROADMAP.md item."""
+    """Every backbone name builds; an unknown one raises; the legacy and
+    ablation diffusion variants and the noise_scale=0 reverse path, once
+    refused naming their ROADMAP.md item, now build and run."""
     from gdmcf_torch.config import Config
     from gdmcf_torch.diffusion.engine import Diffusion
     from gdmcf_torch.models.registry import BACKBONES, build_model
@@ -145,9 +145,49 @@ def test_other_backbones_name_their_roadmap_item():
     with pytest.raises(ValueError):
         build_model(Config(backbone="nope"), 4, 5, generator=g, device="cpu")
     for variant in ("legacy", "ablation"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Diffusion.create(Config(), variant=variant)
+        assert Diffusion.create(Config(), variant=variant).variant == variant
     flat = Diffusion.create(Config(noise_scale=0.0, steps=5))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        flat.p_sample(None, torch.zeros(2, 3), torch.zeros(2).long(),
-                      sampling_steps=0)
+    out = flat.p_sample(lambda x, t, x_U, index, graph: (x + 1.0, None),
+                        torch.zeros(2, 3), torch.zeros(2).long(),
+                        sampling_steps=0)
+    assert torch.equal(out, torch.full((2, 3), 5.0))
+
+
+def _modules_after(code: str):
+    """sys.modules' names after running ``code`` in a fresh interpreter
+    with the repo on its path."""
+    code += "\nimport sys, json\nprint(json.dumps(sorted(sys.modules)))\n"
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    import json
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_serve_front_imports_no_torch():
+    """A pre-forked front stays light: importing its module (and through it
+    the package) loads neither torch nor JAX nor the JAX package."""
+    mods = _modules_after("import gdmcf_torch.serve_front\n"
+                          "from gdmcf_torch.serve_front import (Backend, "
+                          "BackendUnreachable, ReusePortHTTPServer, "
+                          "front_serve, make_handler, spawn_fronts, main)")
+    bad = [m for m in mods if m in ("torch", "jax", "triton")
+           or m.startswith(("torch.", "jax.", "gdmcf_tpu"))]
+    assert not bad, bad
+    assert "gdmcf_torch.serve_front" in mods and "numpy" in mods
+
+
+def test_serving_and_compat_names_import_without_jax():
+    mods = _modules_after(
+        "from gdmcf_torch.serve_http import (Coalescer, make_server, "
+        "serve_multiproc, supervise_fronts, main)\n"
+        "from gdmcf_torch.serve import Recommender\n"
+        "assert callable(Recommender.reload_params)\n"
+        "from gdmcf_torch.compat import (params_from_state_dict, "
+        "import_reference_embeddings, import_reference_checkpoint, main)\n"
+        "from gdmcf_torch.diffusion.engine import (mix_tensors, normal_kl, "
+        "absorbing_qt_bar, LegacyNoiseDraws)")
+    bad = [m for m in mods if m == "jax" or m.startswith(("jax.",
+                                                          "gdmcf_tpu"))]
+    assert not bad, bad
