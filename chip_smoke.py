@@ -153,8 +153,49 @@ Phases (any failure exits non-zero):
      one train_epoch (272 steps) of DNN at OneHotMatrix 0 under each
      variant at the Amazon-Book width, 6 AdamW launches a step, each
      followed by the request checks of a served batch;
- 19. the kernel JSON line, the card's name and power limit, and as the
+ 19. (dp, mp) meshes on torch.distributed, each a world of ranks sharing
+     the one card over gloo (backend="gloo", device="cuda:0"), launched
+     through the env contract of multihost.initialize as subprocesses of
+     this script (--mesh-worker): the flagship at the Amazon-Book width on
+     meshes (2,1), (1,2) and (2,2), with every leaf's placement printed,
+     3 train steps of 400 on the batches of a single-process run on the
+     card from the same init, TF32 off on both sides (every step's loss
+     within rtol 2e-4; the parameters after the steps within rtol 5e-3 /
+     atol 1e-5 but for elements at float32's rounding floor: both runs'
+     gradients of it under AdamW's eps 1e-8 at one of the steps, not
+     both zero; counted, and at most MESH_EXCUSED_SHARE of any rank's
+     tensor),
+     (2,2) again at the configured compute_dtype bfloat16 (TF32 on) on
+     both sides (losses within rtol 2e-4, at most MESH_TF32_SHARE of any
+     rank's tensor past rtol 5e-3 / atol 1e-5), one AdamW
+     launch per rank per step for each of the rank's trainable tensors,
+     evaluate_streaming of 4,000 users dp-sharded and replicated (both
+     within 1.01e-4 of each other and of the single process) and the ids
+     of one dp-sharded eval batch of 400 users equal to the single
+     process's except swapped pairs scored within 1e-5 (counted),
+     allgather_host_vectors bit-exact on float64; a checkpoint written on
+     (2,2) restored into a single-process Trainer with every tensor
+     bitwise equal to the mesh run's full_tensor() (fingerprints of the
+     bits), and the single-process Recommender.from_checkpoint passing
+     phase 7's request checks; lightGCN on (1,2): 2 + 2 SpMM launches per
+     rank at start-up, the eval ids equal to the single process's except
+     swapped pairs whose single-process scores differ by less than 1e-5
+     (counted); step p50 and each rank's peak memory, labelled as ranks
+     sharing one card (not a scaling number);
+ 20. the kernel JSON line, the card's name and power limit, and as the
      last line {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --mesh-phase     # phase 19 alone, no JSON line
+    python3 chip_smoke.py --mesh-diagnostic
+                                           # what phase 19's parameter
+                                           # limits rest on: the first
+                                           # GEMM's rounding by shape with
+                                           # TF32 on and off, and (2,2)
+                                           # steps at TF32 and with planted
+                                           # faults (a dropped user-table
+                                           # gradient, a gradient left out
+                                           # of the dp all-reduce), written
+                                           # to chiprun_out/
 """
 
 import contextlib
@@ -2488,11 +2529,699 @@ def precision_pairs(root, card, torch):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase 19: (dp, mp) meshes of ranks sharing the one card over gloo
+MESHES = ((2, 1), (1, 2), (2, 2))
+MESH_STEPS = 3
+MESH_EVAL_USERS = 4_000        # the evaluate_streaming split's users
+MESH_LOSS_RTOL = 2e-4          # tests/test_sharding.py's tolerances
+MESH_PARAMS = dict(rtol=5e-3, atol=1e-5)
+# float32 (TF32 off on both sides): an element past MESH_PARAMS passes only
+# when, at one of the steps, both runs' gradients of it were under
+# MESH_FLOOR, AdamW's eps, and not both exactly zero: a sum of 400 rows
+# that cancels to float32's rounding floor. Under eps AdamW moves a
+# parameter in proportion to its gradient (g / (|g| + eps) of lr at the
+# first step), so two roundings of such a sum, often of opposite signs,
+# move it by a share of lr apart. (A gradient that is zero in both runs
+# moves the parameter alike in both.) Such excused elements may be at most
+# MESH_EXCUSED_SHARE of a rank's tensor: the geometric mean of
+# --mesh-diagnostic's readings, 1.39e-7 without a fault ((2,1)) and 3.90e-5
+# with the user table's gradient dropped on (2,2) (PERF.md §6).
+MESH_FLOOR = 1e-8
+MESH_EXCUSED_SHARE = 2.3e-6
+# TF32 on (the configured compute_dtype bfloat16) on both sides: TF32 keeps
+# 10 bits of each GEMM input's mantissa, so inputs that differ in float32's
+# last bits (a 200-row block, a split contraction) may round apart; the
+# share of each rank's tensor past MESH_PARAMS is held under
+# MESH_TF32_SHARE, the geometric mean of --mesh-diagnostic's readings on
+# (2,2): 2.728e-4 without a fault, 8.766e-3 with the user table's gradient
+# dropped (PERF.md §6)
+MESH_TF32 = (2, 2)
+MESH_TF32_SHARE = 1.5e-3
+MESH_CLOSE = 1.01e-4           # one unit of the metrics' 4-decimal rounding
+MESH_TIE = 1e-5                # a swapped pair's single-process score gap
+MESH_RANK_TIMEOUT = 420        # every rank exits by then, or is killed
+MESH_CKPT = (2, 2)
+
+
+def fingerprint(torch, t):
+    """Two int64 sums of a tensor's bit patterns (plain and position
+    weighted): equal fingerprints of equal-shape tensors mean equal bits
+    short of a deliberate collision."""
+    t = t.detach().contiguous().reshape(-1)
+    bits = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+    b = bits.long()
+    w = torch.arange(b.numel(), device=b.device) % 65521 + 1
+    return [int(b.sum()), int((b * w).sum())]
+
+
+def compare_ids(ids, ref):
+    """(tie pairs, other differences) of top-k ids against a single-process
+    run's ``ref`` ({"ids", "scores"}): a differing position is a tie pair
+    when the single process scored its two ids within MESH_TIE."""
+    ties = bad = 0
+    for r, j in (ids.cpu() != ref["ids"]).nonzero().tolist():
+        gap = abs(float(ref["scores"][r, ids[r, j]])
+                  - float(ref["scores"][r, ref["ids"][r, j]]))
+        ties, bad = (ties + 1, bad) if gap < MESH_TIE else (ties, bad + 1)
+    return ties, bad
+
+
+def mesh_config(root, tmp, **kw):
+    from gdmcf_torch.config import load_config
+
+    meta = json.load(open(os.path.join(tmp, "mesh_inputs.json")))
+    return load_config(os.path.join(root, "configs", "amazonOneEmbGcn.yaml"),
+                       dict(meta["cfg"], **kw))
+
+
+def floor_bits(torch, g, s):
+    """Step ``s``'s bits of a gradient: bit s where it is under MESH_FLOOR,
+    bit 3 + s where it is exactly zero."""
+    tiny = (g.abs() < MESH_FLOOR).to(torch.uint8) << s
+    return tiny | ((g == 0).to(torch.uint8) << (3 + s))
+
+
+def at_floor(torch, single, mesh):
+    """Elements at the rounding floor at one of the steps, from both runs'
+    ``floor_bits``: under the floor in both, not zero in both."""
+    out = torch.zeros_like(single, dtype=torch.bool)
+    for s in range(MESH_STEPS):
+        tiny = ((single >> s) & (mesh >> s) & 1).bool()
+        zero = ((single >> (3 + s)) & (mesh >> (3 + s)) & 1).bool()
+        out |= tiny & ~zero
+    return out
+
+
+def mesh_reference(torch, trainer, data, users, tmp, tag, bits: bool):
+    """MESH_STEPS single-process steps on the card: writes the parameters
+    after them (``ref_<tag>.pt``) and, with ``bits``, each gradient's
+    ``floor_bits`` (``bits_<tag>.pt``); returns the losses."""
+    state = trainer.init_state()
+    losses, codes = [], {}
+    for s in range(MESH_STEPS):
+        loss, grads, lt = trainer.loss_and_grads(
+            state, torch.from_numpy(data.gather_packed(users[s])),
+            torch.from_numpy(users[s]))
+        if bits:
+            for k, g in grads.items():
+                b = floor_bits(torch, g, s)
+                codes[k] = codes[k] | b if k in codes else b
+        state = trainer.apply_grads(state, grads, lt)
+        losses.append(float(loss))
+    torch.save({k: p.detach().cpu() for k, p in state.params.items()},
+               os.path.join(tmp, f"ref_{tag}.pt"))
+    if bits:
+        torch.save({k: c.cpu() for k, c in codes.items()},
+                   os.path.join(tmp, f"bits_{tag}.pt"))
+    return losses
+
+
+def mesh_steps(torch, trainer, cfg, tmp, tag, dp, mp, rank, fault=""):
+    """MESH_STEPS train steps of this rank's dp block of the single-process
+    batches, then each trainable tensor against the single-process run's
+    (``ref_<tag>.pt``): [elements past MESH_PARAMS, elements, largest
+    difference in lr, and with ``bits_<tag>.pt``: those past it not at the
+    floor, those at the floor]. ``fault`` plants one for --mesh-diagnostic:
+    ``lookup`` drops the user table's gradient, ``dp`` leaves
+    ``in_layers.0.weight``'s gradient out of the dp all-reduce."""
+    import scipy.sparse as sp
+
+    from gdmcf_torch.data.native import NativeCSR
+    from gdmcf_torch.ops import fused_adamw as FA
+    from gdmcf_torch.parallel import collectives
+    from gdmcf_torch.parallel.sharding import local_block, shard_of
+
+    users = np.load(os.path.join(tmp, "mesh_users.npy"))
+    data = NativeCSR.from_scipy(sp.load_npz(os.path.join(tmp, "train.npz")))
+    block = cfg.batch_size // dp
+    lo = (rank // mp) * block
+    state = trainer.init_state()
+
+    def mine(t, p):   # this rank's block of a whole tensor, on the card
+        if shard_of(p) is not None:
+            t = local_block(t, shard_of(p))
+        return t.to(p.device)
+
+    with_bits = os.path.exists(os.path.join(tmp, f"bits_{tag}.pt"))
+    if with_bits:
+        ref_bits = torch.load(os.path.join(tmp, f"bits_{tag}.pt"), mmap=True,
+                              weights_only=True)
+        ref_bits = {k: mine(ref_bits[k], p) for k, p in state.params.items()}
+        bits = {}
+    if fault == "dp":
+        shape = state.params["in_layers.0.weight"].shape
+        reduce = collectives.all_reduce_
+        collectives.all_reduce_ = (
+            lambda x, group, op=torch.distributed.ReduceOp.SUM:
+            None if x.shape == shape else reduce(x, group, op))
+    losses, launches, step_ms = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for s in range(MESH_STEPS):
+        u = users[s][lo:lo + block]
+        x = torch.from_numpy(data.gather_packed(u))
+        FA.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads, lt = trainer.loss_and_grads(state, x,
+                                                 torch.from_numpy(u))
+        if fault == "lookup":
+            grads["embedding_user"].zero_()
+        state = trainer.apply_grads(state, grads, lt)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(FA.LAUNCHES["fused_adamw"])
+        if with_bits:
+            for k, g in grads.items():
+                b = floor_bits(torch, g, s)
+                bits[k] = bits[k] | b if k in bits else b
+        del grads
+    ref = torch.load(os.path.join(tmp, f"ref_{tag}.pt"), mmap=True,
+                     weights_only=True)
+    share, report = 0.0, {}
+    for k, p in state.params.items():
+        want = mine(ref[k], p)
+        diff = (p.detach() - want).abs()
+        ratio = diff / (MESH_PARAMS["atol"]
+                        + MESH_PARAMS["rtol"] * want.abs())
+        share = max(share, float(ratio.max()))
+        past = ratio >= 1
+        report[k] = [int(past.sum()), p.numel(), float(diff.max()) / cfg.lr]
+        if with_bits:
+            floor = at_floor(torch, ref_bits[k], bits[k])
+            report[k] += [int((past & ~floor).sum()), int(floor.sum())]
+    return dict(losses=losses, launches=launches, step_ms=step_ms,
+                local_tensors=len(state.params), param_share=share,
+                param_report=report,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30), state
+
+
+def mesh_worker(argv) -> int:
+    """One rank of a phase-19 world (``--mesh-worker KIND DP MP DIR
+    [FAULT]``), started under the env contract of
+    ``multihost.initialize``; writes ``DIR/<KIND>_<DP>x<MP>_rank<r>.json``.
+    KIND: ``flagship`` (float32: placements, evaluations, steps, the
+    checkpoint), ``f32`` or ``tf32`` (the steps alone, in float32 or at the
+    configured compute_dtype bfloat16) or ``lightgcn``."""
+    import faulthandler
+
+    kind, dp, mp, tmp = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    fault = argv[4] if len(argv) > 4 else ""
+    faulthandler.dump_traceback_later(MESH_RANK_TIMEOUT, exit=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    import scipy.sparse as sp
+    import torch
+
+    from gdmcf_torch.data.native import NativeCSR
+    from gdmcf_torch.ops import spmm as S
+    from gdmcf_torch.parallel import multihost
+    from gdmcf_torch.parallel.sharding import describe, full_tensor, shard_of
+    from gdmcf_torch.train.checkpoint import Checkpointer
+    from gdmcf_torch.train.trainer import Trainer
+
+    multihost.initialize(backend="gloo", device="cuda")
+    rank, world = multihost.process_index(), multihost.process_count()
+    torch.cuda.set_device(0)
+    meta = json.load(open(os.path.join(tmp, "mesh_inputs.json")))
+    train = sp.load_npz(os.path.join(tmp, "train.npz")).tocsr()
+    out = {"rank": rank}
+    cfg_kw = dict(mesh_dp=dp, mesh_mp=mp, device="cuda:0")
+    if kind == "lightgcn":
+        cfg = mesh_config(root, tmp, backbone="lightGCN",
+                          compute_dtype="bfloat16", **cfg_kw)
+        S.reset_launch_counts()
+        trainer = Trainer(cfg, N_USER, N_ITEM, train_csr=train)
+        out["startup_launches"] = dict(S.LAUNCHES)
+        users = np.load(os.path.join(tmp, "lgn_users.npy"))
+        rows = torch.from_numpy(NativeCSR.from_scipy(train).gather_packed(
+            users)).cuda()
+        gen = torch.Generator("cuda").manual_seed(cfg.random_seed + 12345)
+        ids = trainer.eval_step(rows, torch.from_numpy(users).cuda(), rows,
+                                sampling_steps=cfg.sampling_steps,
+                                top_k=100, generator=gen)
+        ties, bad = compare_ids(ids, torch.load(
+            os.path.join(tmp, "lgn_ref.pt"), weights_only=True))
+        out.update(tie_pairs=ties, other_differences=bad,
+                   frozen_user_local=list(trainer.model.frozen_lgn_user.shape))
+    elif kind in ("f32", "tf32"):
+        cfg = mesh_config(root, tmp, **cfg_kw, compute_dtype={
+            "f32": "float32", "tf32": "bfloat16"}[kind])
+        trainer = Trainer(cfg, N_USER, N_ITEM)
+        steps, _ = mesh_steps(torch, trainer, cfg, tmp, kind, dp, mp, rank,
+                              fault)
+        out.update(steps)
+    else:
+        cfg = mesh_config(root, tmp, **cfg_kw)
+        trainer = Trainer(cfg, N_USER, N_ITEM)
+        out["placements"] = {
+            k: f"{describe(v)} local {list(trainer.model.state_dict()[k].shape)}"
+            for k, v in trainer.placements.items()}
+        # evaluation at the seeded init, dp-sharded then replicated
+        valid = sp.load_npz(os.path.join(tmp, "valid.npz")).tocsr()
+        n_eval = meta["eval_users"]
+        tr_e = NativeCSR.from_scipy(train[:n_eval])
+        va_e = NativeCSR.from_scipy(valid[:n_eval], strict=False)
+        for name, repl in (("eval_sharded", False), ("eval_replicated", True)):
+            trainer.cfg.eval_replicated = repl
+            t0 = time.perf_counter()
+            out[name] = trainer.evaluate_streaming(None, [tr_e], va_e, [tr_e],
+                                                   cfg.topN)
+            out[name + "_s"] = time.perf_counter() - t0
+        trainer.cfg.eval_replicated = False
+        # one eval batch of 400 users at the init: this rank's dp block
+        # under its row block, the ids gathered over dp
+        from gdmcf_torch.parallel.collectives import all_gather_list
+        from gdmcf_torch.parallel.mesh import axis_group
+
+        users = np.load(os.path.join(tmp, "lgn_users.npy"))
+        block = len(users) // dp
+        u = users[(rank // mp) * block:(rank // mp + 1) * block]
+        rows = torch.from_numpy(NativeCSR.from_scipy(train).gather_packed(
+            u)).cuda()
+        gen = torch.Generator("cuda").manual_seed(cfg.random_seed + 12345)
+        ids = trainer.eval_step(rows, torch.from_numpy(u).cuda(), rows,
+                                sampling_steps=cfg.sampling_steps,
+                                top_k=100, generator=gen,
+                                block=trainer.row_block(block))
+        ids = torch.cat(all_gather_list(ids, axis_group(trainer.mesh, "dp")))
+        out["eval_ties"], out["eval_other"] = compare_ids(ids, torch.load(
+            os.path.join(tmp, "flagship_ref.pt"), weights_only=True))
+        # float64 host vectors travel bit-exactly
+        vec = np.array([rank + 1.0 / 3.0, 5e-324, -0.0, 1e300 * (rank + 1),
+                        np.pi * rank])
+        got = multihost.allgather_host_vectors(vec)
+        want = np.stack([np.array([r + 1.0 / 3.0, 5e-324, -0.0,
+                                   1e300 * (r + 1), np.pi * r])
+                         for r in range(world)])
+        out["host_vectors_bit_exact"] = (got.view(np.uint64).tolist()
+                                         == want.view(np.uint64).tolist())
+        # the single-process run's batches: this rank's dp block of each
+        steps, state = mesh_steps(torch, trainer, cfg, tmp, "f32", dp, mp,
+                                  rank, fault)
+        out.update(steps)
+        if [dp, mp] == list(MESH_CKPT):
+            Checkpointer(os.path.join(tmp, "ckpt"), max_to_keep=1).save(state)
+            fps = {"step": state.step,
+                   "lt_history": fingerprint(torch, state.lt.history),
+                   "lt_count": fingerprint(torch, state.lt.count)}
+            for k, p in state.params.items():
+                sh = shard_of(p)
+                fps[f"params.{k}"] = fingerprint(torch, full_tensor(p))
+                fps[f"mu.{k}"] = fingerprint(
+                    torch, full_tensor(state.opt_state.mu[k], sh))
+                fps[f"nu.{k}"] = fingerprint(
+                    torch, full_tensor(state.opt_state.nu[k], sh))
+            out["fingerprints"] = fps
+    with open(os.path.join(tmp, f"{kind}_{dp}x{mp}_rank{rank}.json"),
+              "w") as fh:
+        json.dump(out, fh)
+    multihost.sync_hosts()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def start_world(kind, dp, mp, tmp, fault=""):
+    """Start the dp * mp ranks of a world; returns their processes."""
+    port = free_port()
+    procs = []
+    for rank in range(dp * mp):
+        env = dict(os.environ, COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   NUM_PROCESSES=str(dp * mp), PROCESS_ID=str(rank),
+                   OMP_NUM_THREADS="2")
+        logf = open(os.path.join(tmp, f"{kind}_{dp}x{mp}_rank{rank}.log"),
+                    "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+             kind, str(dp), str(mp), tmp, fault], env=env, stdout=logf,
+            stderr=subprocess.STDOUT))
+        logf.close()
+    return procs
+
+
+def finish_world(kind, dp, mp, tmp, procs):
+    """Wait for a world (every rank is killed past the timeout) and return
+    the ranks' results; a failed rank prints every rank's log and raises."""
+    deadline = time.time() + MESH_RANK_TIMEOUT + 30
+    for p in procs:
+        try:
+            p.wait(timeout=max(deadline - time.time(), 1))
+        except subprocess.TimeoutExpired:
+            pass
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    if any(p.returncode != 0 for p in procs):
+        for r in range(len(procs)):
+            with open(os.path.join(tmp, f"{kind}_{dp}x{mp}_rank{r}.log")) as fh:
+                log(f"--- {kind} ({dp},{mp}) rank {r} "
+                    f"(exit {procs[r].returncode}):\n{fh.read()[-4000:]}")
+        raise RuntimeError(f"mesh world {kind} ({dp},{mp}) failed")
+    return [json.load(open(os.path.join(
+        tmp, f"{kind}_{dp}x{mp}_rank{r}.json"))) for r in range(len(procs))]
+
+
+def mesh_inputs(csr, tmp):
+    """The phase-19 inputs in ``tmp``: the splits, the batches' users, the
+    config overrides; returns (train, valid, users, lgn_users)."""
+    import scipy.sparse as sp
+
+    train, valid, _ = amazon_splits(csr)
+    sp.save_npz(os.path.join(tmp, "train.npz"), train, compressed=False)
+    sp.save_npz(os.path.join(tmp, "valid.npz"), valid, compressed=False)
+    rng = np.random.default_rng(19)
+    users = rng.choice(N_USER, MESH_STEPS * 400, replace=False).reshape(
+        MESH_STEPS, 400).astype(np.int64)
+    np.save(os.path.join(tmp, "mesh_users.npy"), users)
+    lgn_users = np.sort(rng.choice(N_USER, 400, replace=False))
+    np.save(os.path.join(tmp, "lgn_users.npy"), lgn_users)
+    with open(os.path.join(tmp, "mesh_inputs.json"), "w") as fh:
+        # float32 unless a world asks for the configured bfloat16 (TF32)
+        json.dump({"cfg": {"host_dense": False,
+                           "compute_dtype": "float32"},
+                   "eval_users": MESH_EVAL_USERS}, fh)
+    return train, valid, users, lgn_users
+
+
+def tf32_report(ranks):
+    """(largest share of a tensor's elements past MESH_PARAMS over the
+    ranks, {tensor: [past, elements] summed over the ranks})."""
+    summed = {}
+    for r in ranks:
+        for k, v in r["param_report"].items():
+            a = summed.setdefault(k, [0, 0])
+            a[0] += v[0]
+            a[1] += v[1]
+    return max(v[0] / v[1] for r in ranks
+               for v in r["param_report"].values()), summed
+
+
+def mesh_phase(root, card, torch, csr):
+    """Phase 19: the flagship at the Amazon-Book width on meshes (2,1),
+    (1,2) and (2,2) in float32, (2,2) again at the configured TF32, and
+    lightGCN on (1,2), each a world of ranks sharing the one card over
+    gloo, against single-process runs on the card. Returns the launch
+    counts for the kernel line."""
+    from gdmcf_torch.data.native import NativeCSR
+    from gdmcf_torch.ops import fused_adamw as FA
+    from gdmcf_torch.serve import Recommender
+    from gdmcf_torch.train.checkpoint import Checkpointer
+    from gdmcf_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="gdmcf_mesh_")
+    try:
+        train, valid, users, lgn_users = mesh_inputs(csr, tmp)
+
+        # the single-process runs on the card
+        t0 = time.perf_counter()
+        cfg = mesh_config(root, tmp, device="cuda")
+        trainer = Trainer(cfg, N_USER, N_ITEM)
+        tr_e = NativeCSR.from_scipy(train[:MESH_EVAL_USERS])
+        va_e = NativeCSR.from_scipy(valid[:MESH_EVAL_USERS], strict=False)
+        ref_eval = trainer.evaluate_streaming(None, [tr_e], va_e, [tr_e],
+                                              cfg.topN)
+        data = NativeCSR.from_scipy(train)
+        rows = torch.from_numpy(data.gather_packed(lgn_users)).cuda()
+        gen = torch.Generator("cuda").manual_seed(cfg.random_seed + 12345)
+        ids, scores = trainer.eval_step(
+            rows, torch.from_numpy(lgn_users).cuda(), rows,
+            sampling_steps=cfg.sampling_steps, top_k=100, generator=gen,
+            return_scores=True)
+        torch.save({"ids": ids.cpu(), "scores": scores.cpu()},
+                   os.path.join(tmp, "flagship_ref.pt"))
+        del rows, ids, scores
+        ref_losses = mesh_reference(torch, trainer, data, users, tmp, "f32",
+                                    bits=True)
+        del trainer
+        trainer = Trainer(mesh_config(root, tmp, device="cuda",
+                                      compute_dtype="bfloat16"),
+                          N_USER, N_ITEM)
+        tf32_losses = mesh_reference(torch, trainer, data, users, tmp,
+                                     "tf32", bits=False)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg_l = mesh_config(root, tmp, device="cuda", backbone="lightGCN",
+                            compute_dtype="bfloat16")
+        trainer = Trainer(cfg_l, N_USER, N_ITEM, train_csr=train)
+        rows = torch.from_numpy(data.gather_packed(lgn_users)).cuda()
+        gen = torch.Generator("cuda").manual_seed(cfg_l.random_seed + 12345)
+        ids, scores = trainer.eval_step(
+            rows, torch.from_numpy(lgn_users).cuda(), rows,
+            sampling_steps=cfg_l.sampling_steps, top_k=100, generator=gen,
+            return_scores=True)
+        torch.save({"ids": ids.cpu(), "scores": scores.cpu()},
+                   os.path.join(tmp, "lgn_ref.pt"))
+        del trainer, rows, ids, scores
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"mesh phase single-process runs: losses {ref_losses} (TF32 "
+            f"{tf32_losses}), eval {ref_eval[1]} (recall@{cfg.topN}), "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # the worlds: (2,1) beside (1,2), then (2,2), then TF32 (2,2)
+        # beside lightGCN
+        t0 = time.perf_counter()
+        first = [(m, start_world("flagship", *m, tmp)) for m in MESHES[:2]]
+        results = {m: finish_world("flagship", *m, tmp, p) for m, p in first}
+        results[MESHES[2]] = finish_world(
+            "flagship", *MESHES[2], tmp, start_world("flagship", *MESHES[2],
+                                                     tmp))
+        last = [("tf32", MESH_TF32, start_world("tf32", *MESH_TF32, tmp)),
+                ("lightgcn", (1, 2), start_world("lightgcn", 1, 2, tmp))]
+        tf32, lgn = (finish_world(kind, *m, tmp, p) for kind, m, p in last)
+        worlds_s = time.perf_counter() - t0
+
+        launches = {}
+        for (dp, mp), ranks in results.items():
+            tag = f"({dp},{mp})"
+            for name, place in ranks[0]["placements"].items():
+                log(f"mesh {tag} {name}: {place}")
+            launches[f"{dp}x{mp}"] = [r["launches"] for r in ranks]
+            p50 = float(np.median([ms for r in ranks
+                                   for ms in r["step_ms"][1:]]))
+            counts = {}   # [past, at the floor, elements] over the ranks
+            for r in ranks:
+                for k, v in r["param_report"].items():
+                    c = counts.setdefault(k, [0, 0, 0])
+                    c[0], c[1], c[2] = c[0] + v[0], c[1] + v[4], c[2] + v[1]
+            excused = max((v[0] - v[3]) / v[1] for r in ranks
+                          for v in r["param_report"].values())
+            log(f"mesh {tag}: {MESH_STEPS} steps of 400 on the single-process "
+                f"batches, TF32 off, losses {ranks[0]['losses']} "
+                f"(single-process {ref_losses}, rtol {MESH_LOSS_RTOL}); "
+                f"parameters after the steps within rtol "
+                f"{MESH_PARAMS['rtol']} / atol {MESH_PARAMS['atol']} but "
+                f"for elements at float32's rounding floor (both runs' "
+                f"gradients under AdamW's eps {MESH_FLOOR} at one step, "
+                f"not both zero), excused, at most {MESH_EXCUSED_SHARE} of "
+                f"a rank's tensor (largest share {excused:.3g}); by tensor "
+                f"over all ranks [past, at the floor, elements] "
+                f"{ {k: c for k, c in counts.items() if c[0] or c[1]} }; "
+                f"largest share of the tolerance "
+                f"{max(r['param_share'] for r in ranks):.3f}; fused_adamw "
+                f"launches per rank per step {ranks[0]['launches']} = the "
+                f"rank's {ranks[0]['local_tensors']} trainable tensors; "
+                f"evaluate_streaming of {MESH_EVAL_USERS} users dp-sharded "
+                f"{ranks[0]['eval_sharded'][1]} and replicated "
+                f"{ranks[0]['eval_replicated'][1]} (recall), within "
+                f"{MESH_CLOSE} of each other and of the single process "
+                f"({ranks[0]['eval_sharded_s']:.2f} / "
+                f"{ranks[0]['eval_replicated_s']:.2f} s); the eval ids of "
+                f"{len(lgn_users)} users equal the single process's except "
+                f"{ranks[0]['eval_ties']} swapped pairs scored within "
+                f"{MESH_TIE}; allgather_host_vectors bit-exact")
+            log(f"mesh {tag}, {dp * mp} ranks sharing one card over gloo "
+                f"(not a scaling number): step p50 {p50:.1f} ms (steps 2-3 "
+                f"of every rank), peak memory by rank "
+                f"{[round(r['peak_gib'], 2) for r in ranks]} GiB [{card}]")
+        share, summed = tf32_report(tf32)
+        tf32_lr = max(v[2] for r in tf32 for v in r["param_report"].values())
+        log(f"mesh {MESH_TF32} at compute_dtype bfloat16 (TF32 on both "
+            f"sides): losses {tf32[0]['losses']} (single-process "
+            f"{tf32_losses}, rtol {MESH_LOSS_RTOL}); parameters past rtol "
+            f"{MESH_PARAMS['rtol']} / atol {MESH_PARAMS['atol']} by tensor "
+            f"over all ranks [past, elements] "
+            f"{ {k: v for k, v in summed.items() if v[0]} }, the largest "
+            f"share of a rank's tensor {share:.3g} (limit "
+            f"{MESH_TF32_SHARE}); largest difference in lr {tf32_lr:.3f}")
+        for (dp, mp), ranks in results.items():
+            tag = f"({dp},{mp})"
+            for r in ranks:
+                for s, (a, b) in enumerate(zip(r["losses"], ref_losses)):
+                    assert abs(a - b) <= MESH_LOSS_RTOL * abs(b), \
+                        f"{tag} rank {r['rank']} step {s}: {a} vs {b}"
+                rep = r["param_report"]
+                bad = {k: v for k, v in rep.items() if v[3]}
+                assert not bad, (tag, r["rank"], "past, not at the floor",
+                                 bad)
+                wide = {k: v for k, v in rep.items()
+                        if v[0] - v[3] > MESH_EXCUSED_SHARE * v[1]}
+                assert not wide, (tag, r["rank"], "excused", wide)
+                assert r["launches"] == [r["local_tensors"]] * MESH_STEPS, \
+                    (tag, r["launches"], r["local_tensors"])
+                assert r["host_vectors_bit_exact"], tag
+                assert r["eval_other"] == 0, (tag, r["rank"], r["eval_other"])
+                for key in ("eval_sharded", "eval_replicated"):
+                    got = np.asarray(r[key])
+                    for other in (np.asarray(ref_eval),
+                                  np.asarray(r["eval_replicated"])):
+                        assert np.abs(got - other).max() <= MESH_CLOSE, \
+                            (tag, key, got.tolist(), other.tolist())
+        for r in tf32:
+            for s, (a, b) in enumerate(zip(r["losses"], tf32_losses)):
+                assert abs(a - b) <= MESH_LOSS_RTOL * abs(b), \
+                    f"TF32 rank {r['rank']} step {s}: {a} vs {b}"
+            assert r["launches"] == [r["local_tensors"]] * MESH_STEPS
+        assert share <= MESH_TF32_SHARE, ("TF32", share, summed)
+        for r in lgn:
+            assert r["startup_launches"] == {"spmm_rows_fwd": 2,
+                                             "spmm_rows_t": 2}, r
+            assert r["other_differences"] == 0, r
+        log(f"mesh (1,2) lightGCN: start-up launches per rank "
+            f"{[r['startup_launches'] for r in lgn]}, frozen user table "
+            f"block {lgn[0]['frozen_user_local']}; eval ids of "
+            f"{len(lgn_users)} users equal the single process's except "
+            f"{lgn[0]['tie_pairs']} swapped pairs whose single-process "
+            f"scores differ by less than {MESH_TIE}")
+
+        # the (2,2) checkpoint into a single-process Trainer, then serving
+        fps = results[MESH_CKPT][0]["fingerprints"]
+        cfg = mesh_config(root, tmp, device="cuda")
+        trainer = Trainer(cfg, N_USER, N_ITEM)
+        state = Checkpointer(os.path.join(tmp, "ckpt")).restore(
+            trainer.init_state())
+        got = {"step": state.step,
+               "lt_history": fingerprint(torch, state.lt.history),
+               "lt_count": fingerprint(torch, state.lt.count)}
+        for k, p in state.params.items():
+            got[f"params.{k}"] = fingerprint(torch, p)
+            got[f"mu.{k}"] = fingerprint(torch, state.opt_state.mu[k])
+            got[f"nu.{k}"] = fingerprint(torch, state.opt_state.nu[k])
+        assert got == fps, [k for k in fps if got.get(k) != fps[k]]
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        FA.reset_launch_counts()
+        rec = Recommender.from_checkpoint(cfg, os.path.join(tmp, "ckpt"),
+                                          train, serve_batch=256, k_max=100)
+        check_requests(rec, train, N_ITEM, "mesh (2,2) checkpoint served")
+        assert FA.LAUNCHES["fused_adamw"] == 0
+        log(f"mesh (2,2) checkpoint: {len(fps) - 3} tensors and the Lt ring "
+            f"bitwise equal to the mesh run's full_tensor() after restore "
+            f"into a single-process Trainer; worlds {worlds_s:.1f} s, phase "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        del rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"fused_adamw": launches,
+                "spmm": [r["startup_launches"] for r in lgn]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def gemm_rounding(torch, train):
+    """How cuBLAS rounds the flagship's first GEMM ([400, 94,959] rows
+    against a [1024, 94,959] weight) whole, as two 200-row blocks (a dp
+    block) and as two contraction halves summed (an mp split), with TF32
+    on and off: {mode: largest difference relative to the largest
+    output}."""
+    from gdmcf_torch.data.native import NativeCSR
+    from gdmcf_torch.ops.bitpack import unpack_rows
+
+    g = torch.Generator("cuda").manual_seed(0)
+    x = unpack_rows(torch.from_numpy(NativeCSR.from_scipy(train).gather_packed(
+        np.arange(400))).cuda(), N_ITEM)
+    x = torch.cat([x, torch.randn(400, 10, device="cuda", generator=g)], 1)
+    w = torch.randn(1024, x.shape[1], device="cuda", generator=g) * 0.01
+    out = {}
+    for mode in ("highest", "high"):
+        torch.set_float32_matmul_precision(mode)
+        whole = x @ w.T
+        rows = torch.cat([x[:200] @ w.T, x[200:] @ w.T])
+        k = x.shape[1] // 2
+        parts = x[:, :k] @ w[:, :k].T + x[:, k:] @ w[:, k:].T
+        exact = (x.double() @ w.double().T)
+        top = float(exact.abs().max())
+        out["TF32 on" if mode == "high" else "TF32 off"] = {
+            "dp rows vs whole": float((rows - whole).abs().max()) / top,
+            "mp halves vs whole": float((parts - whole).abs().max()) / top,
+            "whole vs float64": float((whole - exact).abs().max()) / top}
+    torch.set_float32_matmul_precision("highest")
+    return out
+
+
+def mesh_diagnostic(root, card, torch, csr):
+    """--mesh-diagnostic: what phase 19's parameter limits rest on. The
+    first GEMM's rounding by shape with TF32 on and off, then (2,2) worlds
+    of MESH_STEPS steps against single-process runs: at TF32 without a
+    fault, and with a planted fault (the user table's gradient dropped; a
+    tensor's gradient left out of the dp all-reduce) at TF32 and in
+    float32. Prints each world's per-tensor readings and writes them to
+    chiprun_out/mesh_diagnostic.json."""
+    from gdmcf_torch.data.native import NativeCSR
+    from gdmcf_torch.train.trainer import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="gdmcf_mesh_")
+    try:
+        train, _, users, _ = mesh_inputs(csr, tmp)
+        found = {"card": card, "gemm": gemm_rounding(torch, train)}
+        log(f"mesh diagnostic: first GEMM rounding {found['gemm']}")
+        data = NativeCSR.from_scipy(train)
+        for tag, dtype in (("f32", "float32"), ("tf32", "bfloat16")):
+            trainer = Trainer(mesh_config(root, tmp, device="cuda",
+                                          compute_dtype=dtype),
+                              N_USER, N_ITEM)
+            found[f"single_{tag}"] = mesh_reference(
+                torch, trainer, data, users, tmp, tag, bits=tag == "f32")
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+        for kind, fault in (("tf32", ""), ("tf32", "lookup"), ("tf32", "dp"),
+                            ("f32", "lookup"), ("f32", "dp")):
+            t0 = time.perf_counter()
+            ranks = finish_world(kind, 2, 2, tmp,
+                                 start_world(kind, 2, 2, tmp, fault))
+            share, summed = tf32_report(ranks)
+            floor, excused = {}, 0.0
+            if kind == "f32":
+                for r in ranks:
+                    for k, v in r["param_report"].items():
+                        c = floor.setdefault(k, [0, 0])
+                        c[0], c[1] = c[0] + v[3], c[1] + v[4]
+                        excused = max(excused, (v[0] - v[3]) / v[1])
+            found[f"{kind} {fault or 'none'}"] = {
+                "losses": [r["losses"] for r in ranks],
+                "largest_share_past": share, "past_by_tensor": summed,
+                "unexplained_and_at_floor_by_tensor": floor,
+                "largest_share_excused": excused,
+                "reports": [r["param_report"] for r in ranks]}
+            log(f"mesh diagnostic (2,2) {kind}, fault {fault or 'none'}: "
+                f"losses {ranks[0]['losses']}; largest share of a rank's "
+                f"tensor past rtol {MESH_PARAMS['rtol']} / atol "
+                f"{MESH_PARAMS['atol']}: {share:.4g}; [past, elements] "
+                f"{ {k: v for k, v in summed.items() if v[0]} }; [past not "
+                f"at the floor, at the floor] "
+                f"{ {k: v for k, v in floor.items() if v[0] or v[1]} }, "
+                f"largest share of a rank's tensor excused {excused:.4g}; "
+                f"{time.perf_counter() - t0:.1f} s")
+        os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(root, "chiprun_out",
+                               "mesh_diagnostic.json"), "w") as fh:
+            json.dump(found, fh)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import argparse
 
     if sys.argv[1:2] == ["--http-client"]:   # phase 17's load generator
         return http_client(sys.argv[2:])
+    if sys.argv[1:2] == ["--mesh-worker"]:   # a rank of phase 19
+        return mesh_worker(sys.argv[2:])
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="FILE", default=None,
                         help="write torch.profiler tables of 5 lightGCN "
@@ -2505,6 +3234,13 @@ def main() -> int:
     parser.add_argument("--precision-pairs", action="store_true",
                         help="run only G4 at seeds 0-5 and the legacy gate "
                              "at seeds 0-2 with TF32 on and off, paired")
+    parser.add_argument("--mesh-phase", action="store_true",
+                        help="run only phase 19 (the meshes of ranks "
+                             "sharing the card) and report it")
+    parser.add_argument("--mesh-diagnostic", action="store_true",
+                        help="print what phase 19's parameter limits rest "
+                             "on: GEMM rounding by shape, TF32 and planted "
+                             "faults on (2,2)")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2519,6 +3255,24 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     card = card_line()
     t_start = time.perf_counter()
+    if args.mesh_diagnostic:
+        FA.build_kernel()
+        log(card)
+        mesh_diagnostic(root, card, torch, power_law_graph(0))
+        log(f"chip_smoke (mesh diagnostic only): "
+            f"{time.perf_counter() - t_start:.1f} s")
+        log(card)
+        return 0
+    if args.mesh_phase:
+        S.build_kernels()
+        FA.build_kernel()
+        log(card)
+        launches = mesh_phase(root, card, torch, power_law_graph(0))
+        log(f"mesh launches {json.dumps(launches)}")
+        log(f"chip_smoke (phase 19 only): "
+            f"{time.perf_counter() - t_start:.1f} s")
+        log(card)
+        return 0
     if args.fresh_seed_gates or args.precision_pairs:
         S.build_kernels()
         FA.build_kernel()
@@ -2664,13 +3418,22 @@ def main() -> int:
             root, card, torch, data_dir)
         entry["launches_variant_epochs"] = variant_epochs_phase(
             root, card, torch, csr)
-        del csr
         log(f"variant phase: {time.perf_counter() - t0:.1f} s")
+
+        # 19. the meshes: ranks sharing the card over gloo
+        t0 = time.perf_counter()
+        mesh = mesh_phase(root, card, torch, csr)
+        entry["launches_mesh_steps_by_rank"] = mesh["fused_adamw"]
+        for k in kernels[:2]:
+            k["launches_mesh_lightgcn_startup_by_rank"] = [
+                r[k["name"]] for r in mesh["spmm"]]
+        del csr
+        log(f"mesh phase: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    # 19. results
-    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of phases 1-18")
+    # 20. results
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of phases 1-19")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

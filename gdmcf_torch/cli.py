@@ -4,6 +4,16 @@
     python -m gdmcf_torch.cli -c configs/yelpOneEmbGcn.yaml --device cpu \\
         --data_path ./Datasets/yelp_clean/ --epochs 10 --debug true
 
+A (dp, mp) mesh runs one process per rank under the env contract of
+``parallel.multihost.initialize`` (COORDINATOR_ADDRESS, NUM_PROCESSES,
+PROCESS_ID), e.g. four ranks of ``--mesh_dp 2 --mesh_mp 2``:
+
+    for r in 0 1 2 3; do COORDINATOR_ADDRESS=127.0.0.1:29500 \
+        NUM_PROCESSES=4 PROCESS_ID=$r python -m gdmcf_torch.cli \
+        --mesh_dp 2 --mesh_mp 2 --device cpu ... & done; wait
+
+Every rank trains; the main rank alone writes the output.
+
 Runs on ``cuda`` unless ``--device cpu``. Output goes to
 ``<log_name>/<dataset>/<YYYYMMDD>/<out_name>/``: ``output_NDCG.txt`` (stdout
 is redirected there unless ``--debug``) and ``metrics.jsonl``. When the
@@ -20,6 +30,7 @@ from datetime import datetime
 
 from gdmcf_torch.config import Config, parse_args
 from gdmcf_torch.data.loader import data_load, generate_synthetic_dataset
+from gdmcf_torch.parallel.multihost import is_main_process, sync_hosts
 from gdmcf_torch.train.trainer import Trainer
 from gdmcf_torch.utils.logging import MetricLogger
 
@@ -27,6 +38,18 @@ from gdmcf_torch.utils.logging import MetricLogger
 def main(cfg: Config = None) -> None:
     if cfg is None:
         cfg = parse_args()
+    if cfg.mesh_dp * cfg.mesh_mp > 1:
+        from gdmcf_torch.parallel import multihost
+
+        multihost.initialize(device=cfg.device)
+        if not multihost.is_main_process():   # the main rank writes
+            with open(os.devnull, "w") as quiet:
+                stdout, sys.stdout = sys.stdout, quiet
+                try:
+                    _run(cfg, None, None)
+                finally:
+                    sys.stdout = stdout
+            return
     out_path = os.path.join(cfg.log_name, cfg.dataset,
                             datetime.now().strftime("%Y%m%d"), cfg.out_name)
     os.makedirs(out_path, exist_ok=True)
@@ -54,14 +77,20 @@ def _run(cfg: Config, out_path: str, out_file: str) -> None:
     train_path = os.path.join(cfg.data_path, "train_list.npy")
     valid_path = os.path.join(cfg.data_path, "valid_list.npy")
     test_path = os.path.join(cfg.data_path, "test_list.npy")
-    if not os.path.exists(train_path):
+    missing = not os.path.exists(train_path)
+    # on a mesh every rank looks before the main rank writes, and reads
+    # after it has written
+    sync_hosts("data")
+    if missing:
         if any(os.path.exists(p) for p in (valid_path, test_path)):
             raise FileNotFoundError(
                 f"{train_path} is missing but sibling split files exist in "
                 f"{cfg.data_path} — refusing to overwrite a partial dataset "
                 "with synthetic data")
         print(f"{train_path} missing; generating synthetic dataset")
-        generate_synthetic_dataset(cfg.data_path)
+        if is_main_process():
+            generate_synthetic_dataset(cfg.data_path)
+    sync_hosts("data")
 
     train_data, valid_y_data, test_y_data, n_user, n_item = data_load(
         train_path, valid_path, test_path)
@@ -74,6 +103,9 @@ def _run(cfg: Config, out_path: str, out_file: str) -> None:
     trainer = Trainer(cfg, n_user=n_user, n_item=n_item,
                       train_csr=train_data)
     print(f"models ready on {trainer.device}.")
+    if out_path is None:   # a mesh rank other than the main one
+        trainer.fit(train_data, valid_y_data, test_y_data)
+        return
     metric_logger = MetricLogger(out_path, echo=cfg.debug, text=cfg.debug)
     # debug: stdout is the console, so fit's lines also go through the
     # logger into output_NDCG.txt; otherwise stdout already is that file

@@ -153,9 +153,27 @@ class Config:
         if self.opt_moment_dtype not in ("bfloat16", "float32"):
             raise ValueError("opt_moment_dtype must be bfloat16 or float32")
         # opt_impl: every value but the JAX package's optimizer chain
-        # selects the single-pass AdamW (train/state.py refuses that one)
+        # selects the single-pass AdamW (train/state.py refuses that one).
+        # The JAX package's mesh refusal stands, so a config valid in one
+        # package is valid in the other (its words, but for the name of
+        # the JAX optimizer library, which the port's sources do not
+        # name); on a mesh "auto" (the JAX package's GSPMD-partitioned
+        # chain) is the same kernel on each rank's own blocks here: AdamW
+        # is elementwise
+        if self.opt_impl in ("inline", "fused") and not self.fused_opt_eligible:
+            raise ValueError(
+                f"opt_impl={self.opt_impl!r} requires param_dtype=float32 "
+                "and a single-device mesh (bf16 params need the JAX "
+                "package's f32-master optimizer wrapper; meshes keep its "
+                "GSPMD-partitioned optimizer chain); use opt_impl='auto' to "
+                "fall back automatically")
         if self.device.split(":")[0] not in ("cuda", "cpu"):
             raise ValueError(f"device must be cuda or cpu, got {self.device!r}")
+
+    @property
+    def fused_opt_eligible(self) -> bool:
+        return (self.param_dtype == "float32"
+                and self.mesh_dp * self.mesh_mp == 1)
 
     def out_dims(self, n_item: int) -> List[int]:
         """Reference main.py:198-206: out = dims + [n_item], in = reversed."""

@@ -95,6 +95,30 @@ class DiffusionDataset:
         return pack_rows(self.rows[idx])
 
 
+class RowSlice:
+    """A contiguous row-range view over any dataset (DiffusionDataset or
+    NativeCSR): a dp group's local shard for multi-process training.
+    ``offset`` maps slice positions back to global user ids."""
+
+    def __init__(self, dataset, rows: range):
+        self.dataset = dataset
+        self.offset = rows.start
+        self._len = len(rows)
+        self.binary = getattr(dataset, "binary", False)
+
+    def __len__(self) -> int:
+        return self._len
+
+    def gather(self, idx: np.ndarray) -> np.ndarray:
+        return self.dataset.gather(np.asarray(idx) + self.offset)
+
+    def gather_packed(self, idx: np.ndarray) -> np.ndarray:
+        g = getattr(self.dataset, "gather_packed", None)
+        if g is None:
+            return pack_rows(self.gather(idx))
+        return g(np.asarray(idx) + self.offset)
+
+
 def epoch_stop(n: int, batch_size: int, drop_last: bool) -> int:
     """Rows an epoch iterates: ``drop_last`` trims to full batches, except
     that a dataset smaller than one batch gives its one partial batch (the

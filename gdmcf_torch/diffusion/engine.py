@@ -12,7 +12,16 @@ value back to the host.
 Random draws: every stochastic function takes either an explicit
 ``torch.Generator`` or pre-drawn uniforms/normals/timesteps, so tests can
 inject the JAX package's own draws (``bernoulli(p)`` is ``uniform < p`` in
-both).
+both). ``train_draws`` and ``p_sample_draws`` make, from a generator, the
+draws that ``training_losses`` and ``p_sample`` would make themselves.
+
+A rank's block of a batch sharded over dp (``block``, a
+``parallel.rows.RowBlock``) runs on its rows of the whole batch's draws
+(the caller's ``train_draws`` / ``p_sample_draws`` at the whole batch's
+size, cut to the block), divides by the whole batch's size in the
+``ts / batch_size`` quirk, feeds the whole batch's losses to the Lt ring and
+gates by the whole batch's largest degree: the block's rows of the
+single-device result.
 
 Fidelity quirks kept (``fidelity=True``): alpha_bar of the discrete channel
 is ``ts / batch_size`` (clipped to [0, 1]); discrete noise only deletes;
@@ -237,6 +246,7 @@ class Diffusion:
     # -- discrete channel --------------------------------------------------
     def _alpha_bar_discrete(self, ts: torch.Tensor,
                             batch_size: int) -> torch.Tensor:
+        # batch_size: the whole batch's (a dp block's is its share)
         if self.fidelity:
             # reference quirk: alpha_bar := ts / batch_size, clipped so a
             # partial batch with B < steps stays a probability
@@ -251,17 +261,21 @@ class Diffusion:
         p1 = (1.0 - a) * (1.0 - self.discrete_eps)
         return torch.where(x > 0.5, a + p1, p1)
 
-    def apply_noise(self, ts, x_binary, generator=None, u=None):
-        """Binary state-1 sample of the 2-state channel, [B, n]."""
-        a = self._alpha_bar_discrete(ts, x_binary.shape[0])
+    def apply_noise(self, ts, x_binary, generator=None, u=None,
+                    batch_size: Optional[int] = None):
+        """Binary state-1 sample of the 2-state channel, [B, n].
+        ``batch_size``: the whole batch's when x is a dp block of it."""
+        a = self._alpha_bar_discrete(
+            ts, x_binary.shape[0] if batch_size is None else batch_size)
         p1 = self.discrete_p_one(a, x_binary)
         u = _uniform(p1.shape, x_binary, generator, u)
         return (u < p1).to(x_binary.dtype)
 
-    def corrupt_discrete(self, ts, x_binary, generator=None, u=None):
+    def corrupt_discrete(self, ts, x_binary, generator=None, u=None,
+                         batch_size: Optional[int] = None):
         """One-hot [B, n, 2] of ``apply_noise(x0) AND onehot(x0)``:
         delete-only noise with a (0, 0) state for disagreeing cells."""
-        s = self.apply_noise(ts, x_binary, generator, u)
+        s = self.apply_noise(ts, x_binary, generator, u, batch_size)
         c1 = x_binary * s
         c0 = (1.0 - x_binary) * (1.0 - s)
         return torch.stack([c0, c1], dim=-1)
@@ -327,25 +341,35 @@ class Diffusion:
         inverse CDF of one uniform for the importance branch."""
         dev = lt.history.device
         all_full = (lt.count == self.history_num_per_term).all()
-        lt_sqrt = torch.sqrt((lt.history ** 2).mean(dim=-1))
-        pt_all = lt_sqrt / lt_sqrt.sum()
-        pt_all = (pt_all * (1.0 - self.uniform_prob)
-                  + self.uniform_prob / self.steps)
+        pt_all = self._importance(lt)
         if draws is None:
-            t_uni = torch.randint(0, self.steps, (batch_size,),
-                                  generator=generator, device=dev)
-            u = torch.rand((batch_size,), generator=generator, device=dev)
-            cdf = torch.cumsum(pt_all, dim=0)
-            t_imp = torch.searchsorted(cdf, u * cdf[-1], right=True)
-        else:
-            t_uni, t_imp = (draws.uniform.to(dev).long(),
-                            draws.importance.to(dev).long())
+            draws = self._draw_timesteps(lt, batch_size, generator)
+        t_uni, t_imp = (draws.uniform.to(dev).long(),
+                        draws.importance.to(dev).long())
         # before the rows fill, pt_all may be NaN; that branch is not taken
         t_imp = t_imp.clamp(0, self.steps - 1)
         t = torch.where(all_full, t_imp, t_uni)
         pt = torch.where(all_full, pt_all[t] * self.steps,
                          torch.ones((batch_size,), device=dev))
         return t, pt
+
+    def _importance(self, lt: LtState) -> torch.Tensor:
+        """pt_all [steps]: sqrt(E[loss^2]) with the ``uniform_prob``
+        floor (NaN before the rows fill; that branch is not taken then)."""
+        lt_sqrt = torch.sqrt((lt.history ** 2).mean(dim=-1))
+        pt_all = lt_sqrt / lt_sqrt.sum()
+        return (pt_all * (1.0 - self.uniform_prob)
+                + self.uniform_prob / self.steps)
+
+    def _draw_timesteps(self, lt: LtState, batch_size: int, generator,
+                        keep=lambda t: t) -> TimestepDraws:
+        dev = lt.history.device
+        t_uni = keep(torch.randint(0, self.steps, (batch_size,),
+                                   generator=generator, device=dev))
+        u = torch.rand((batch_size,), generator=generator, device=dev)
+        cdf = torch.cumsum(self._importance(lt), dim=0)
+        return TimestepDraws(t_uni, keep(torch.searchsorted(
+            cdf, u * cdf[-1], right=True)))
 
     def update_lt(self, lt: LtState, ts: torch.Tensor,
                   losses: torch.Tensor) -> LtState:
@@ -396,11 +420,17 @@ class Diffusion:
                         index: torch.Tensor, lt: LtState,
                         reweight: bool = True,
                         generator: Optional[torch.Generator] = None,
-                        draws: Optional[TrainDraws] = None):
+                        draws: Optional[TrainDraws] = None,
+                        block=None):
         """(per-example loss [B], new LtState, aux dict). Own draws: the
         one-hot channel's timesteps and corruption, the model's timesteps,
         the noise, then the model's dropout (legacy: the one-hot channel's
-        after the noise).
+        after the noise); ``train_draws`` makes them.
+
+        ``block``: x_start is this ``RowBlock`` of a dp-sharded batch and
+        ``draws`` its rows of the whole batch's draws (required); the Lt
+        ring takes the whole batch's losses in batch order, so every rank
+        keeps the same ring.
 
         legacy: the one-hot channel is a continuous q_sample of the one-hot
         at its own timestep draw, independent of the model's (the
@@ -412,14 +442,18 @@ class Diffusion:
             raise ValueError(
                 "noise_scale=0 builds no diffusion coefficient tables; "
                 "training requires reweight=False in that mode")
+        if block is not None and draws is None:
+            raise ValueError("a dp block trains on its rows of the whole "
+                             "batch's draws (train_draws, cut to it)")
         draws = draws or TrainDraws()
         B = x_start.shape[0]
+        total = B if block is None else block.total
         legacy = self.variant == "legacy"
         x_tU = None
         if self.cat_one_hot and not legacy:
             ts_u, _ = self.sample_timesteps(lt, B, generator, draws.ts_u)
             x_tU = self.corrupt_discrete(ts_u, x_start, generator,
-                                         draws.corrupt_u)
+                                         draws.corrupt_u, total)
         ts, pt = self.sample_timesteps(lt, B, generator, draws.ts)
         noise = _normal(x_start.shape, x_start, generator, draws.noise)
         x_t = (self.q_sample(x_start, ts, noise) if self.noise_scale != 0.0
@@ -456,7 +490,8 @@ class Diffusion:
                 x_t, ts, model_output)) ** 2 / 2.0)
             loss = torch.where(ts == 0, likelihood, mse)
         weighted = weight * loss
-        new_lt = self.update_lt(lt, ts, weighted)
+        new_lt = (self.update_lt(lt, ts, weighted) if block is None else
+                  self.update_lt(lt, block.gather(ts), block.gather(weighted)))
         final = weighted / pt
         if closs is not None:
             final = final + closs * 0.1
@@ -464,23 +499,57 @@ class Diffusion:
                "closs": closs if closs is not None else mse.new_zeros(())}
         return final, new_lt, aux
 
+    def train_draws(self, lt: LtState, batch_size: int, n: int,
+                    generator: Optional[torch.Generator], model=None,
+                    keep=lambda t: t) -> TrainDraws:
+        """The draws ``training_losses`` makes itself for ``batch_size``
+        rows over ``n`` items, in its order, then ``model.dropout_draws``
+        (the model in the mode it will train in). ``keep`` maps each draw
+        as it is made: a dp block keeps its rows of the whole batch's."""
+        dev = lt.history.device
+        shape = (batch_size, n)
+        legacy = self.variant == "legacy"
+        ts_u = corrupt_u = noise_u = None
+        if self.cat_one_hot and not legacy:
+            ts_u = self._draw_timesteps(lt, batch_size, generator, keep)
+            corrupt_u = keep(torch.rand(shape, generator=generator,
+                                        device=dev))
+        ts = self._draw_timesteps(lt, batch_size, generator, keep)
+        noise = keep(torch.randn(shape, generator=generator, device=dev))
+        if self.cat_one_hot and legacy:
+            ts_u = self._draw_timesteps(lt, batch_size, generator, keep)
+            noise_u = keep(torch.randn(shape + (2,), generator=generator,
+                                       device=dev))
+        dropout = (() if model is None else
+                   model.dropout_draws(batch_size, n, generator, keep))
+        return TrainDraws(ts_u=ts_u, corrupt_u=corrupt_u, ts=ts, noise=noise,
+                          dropout=dropout, noise_u=noise_u)
+
     # -- reverse sampler ---------------------------------------------------
     def p_sample(self, model: ModelApply, x_start: torch.Tensor,
                  index: torch.Tensor, sampling_steps: int,
                  sampling_noise: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 draws: Optional[PSampleDraws] = None) -> torch.Tensor:
+                 draws: Optional[PSampleDraws] = None,
+                 block=None) -> torch.Tensor:
         """The reverse loop; returns scores [B, n]. discrete: with the
         synthetic-graph growth; ablation: the same growth with the degree
         gate always on, and the clean rows and one-hot into the model and
         the posterior; legacy: the posterior iterated with no graph;
         noise_scale 0 (any variant): the model iterated on its own output
-        with no graph."""
+        with no graph. ``p_sample_draws`` makes its draws.
+
+        ``block``: x_start is this ``RowBlock`` of a dp-sharded batch and
+        ``draws`` its rows of the whole batch's draws (required)."""
         assert sampling_steps <= self.steps, "Too much steps in inference."
         if sampling_steps > 0 and self.coeffs is None:
             raise ValueError("noise_scale=0 supports only sampling_steps=0")
+        if block is not None and draws is None:
+            raise ValueError("a dp block samples with its rows of the whole "
+                             "batch's draws (p_sample_draws, cut to it)")
         draws = draws or PSampleDraws()
         B, n = x_start.shape
+        total = B if block is None else block.total
         dev = x_start.device
         legacy = self.variant == "legacy"
         ablation = self.variant == "ablation"
@@ -496,7 +565,7 @@ class Diffusion:
                                                 draws.init_noise_u)
                         if legacy else
                         self.corrupt_discrete(t0, x_start, generator,
-                                              draws.init_u))
+                                              draws.init_u, total))
         if sampling_steps == 0:
             x_t = x_start
         else:
@@ -541,7 +610,8 @@ class Diffusion:
         # ALWAYS-ON REPAIR: an all-zero batch would divide by zero in the
         # reference; the floor disables the degree gate for it instead
         deg = x_start.sum(dim=1)
-        deg_p = deg / deg.max().clamp_min(1e-12)
+        top = deg.max() if block is None else block.max(deg.max())
+        deg_p = deg / top.clamp_min(1e-12)
         if ablation:
             # the model and the posterior see the clean rows and one-hot;
             # only the grown graph varies from step to step
@@ -549,7 +619,7 @@ class Diffusion:
         g = torch.zeros_like(x_start)
         for s, i in enumerate(range(self.steps - 1, -1, -1)):
             t = step_t(i)
-            p1 = self.discrete_p_one(self._alpha_bar_discrete(t, B), g)
+            p1 = self.discrete_p_one(self._alpha_bar_discrete(t, total), g)
             u = _uniform((B, n), x_start, generator,
                          draws.sprinkle[s] if draws.sprinkle else None)
             grown = u < p1
@@ -565,3 +635,36 @@ class Diffusion:
             model_output, _ = model(x_in, t, x_tU, index=index, graph=graph)
             x_t = posterior(x_in, t, model_output, s)
         return x_t
+
+    def p_sample_draws(self, batch_size: int, n: int, sampling_steps: int,
+                       sampling_noise: bool,
+                       generator: Optional[torch.Generator], device=None,
+                       keep=lambda t: t) -> PSampleDraws:
+        """The draws ``p_sample`` makes itself for ``batch_size`` rows over
+        ``n`` items, in its order; ``keep`` maps each draw as it is made (a
+        dp block keeps its rows of the whole batch's)."""
+        shape = (batch_size, n)
+
+        def draw(sample, size):
+            return keep(sample(size, generator=generator, device=device))
+
+        init_u = init_c = init_noise_u = None
+        legacy = self.variant == "legacy"
+        if self.cat_one_hot and sampling_steps > 0:
+            if legacy:
+                init_noise_u = draw(torch.randn, shape + (2,))
+            else:
+                init_u = draw(torch.rand, shape)
+        if sampling_steps > 0:
+            init_c = draw(torch.randn, shape)
+        sprinkle, gate, noise = [], [], []
+        if self.noise_scale != 0.0:
+            for _ in range(self.steps):
+                if not legacy:
+                    sprinkle.append(draw(torch.rand, shape))
+                    if self.user_guided or self.variant == "ablation":
+                        gate.append(draw(torch.rand, (batch_size,)))
+                if sampling_noise:
+                    noise.append(draw(torch.randn, shape))
+        return PSampleDraws(init_u=init_u, init_c=init_c, sprinkle=sprinkle,
+                            gate=gate, noise=noise, init_noise_u=init_noise_u)

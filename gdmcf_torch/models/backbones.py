@@ -24,6 +24,12 @@ Each class carries the flags of the JAX package's ``ModelDef``:
 indexIn path: it reads ``index`` and asks for the contrastive loss) and
 ``needs_graph`` (it reads ``graph``, so the noise_scale=0 reverse path,
 which grows none, cannot serve it).
+
+On a (dp, mp) mesh the ops that touch a catalog-sharded tensor take their
+mesh forms (``parallel/layers.py``, ``parallel/embed.py``; the same op when
+the tensor is whole). On a dp-sharded batch the trainer draws the whole
+batch's dropout uniforms (``dropout_draws``) and sets ``contrastive_group``,
+so that NT-Xent reads the whole batch's latents.
 """
 
 from __future__ import annotations
@@ -36,11 +42,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from gdmcf_torch.models.gcn import LayerGCN, layer_gcn_user_rows
-from gdmcf_torch.models.layers import (cosine_scores, dropout, l2_normalize,
-                                       linear_init, mlp_init, mlp_out,
-                                       mlp_tanh, nt_xent_loss,
+from gdmcf_torch.models.layers import (dropout, l2_normalize, linear_init,
+                                       mlp_init, mlp_out, nt_xent_loss,
                                        timestep_embedding,
                                        torch_linear_default, xavier_uniform)
+from gdmcf_torch.parallel.collectives import gather_from, gather_rows
+from gdmcf_torch.parallel.embed import lookup_rows
+from gdmcf_torch.parallel.layers import cosine_head, linear_out, linear_parts
+from gdmcf_torch.parallel.sharding import shard_of
 
 
 def _tower_dims(in_dims: List[int], emb_size: int) -> List[int]:
@@ -51,6 +60,15 @@ def _tower_dims(in_dims: List[int], emb_size: int) -> List[int]:
 def _onehot_dims(in_dims: List[int], emb_size: int) -> List[int]:
     """The one-hot tower's widths: the [B, n, 2] corruption flattened."""
     return _tower_dims([in_dims[0] * 2] + list(in_dims[1:]), emb_size)
+
+
+def _tower(layers: nn.ModuleList, parts, act=torch.tanh) -> torch.Tensor:
+    """``act`` after every layer over ``cat(parts, -1)``; the first layer
+    may hold a catalog-sharded weight (``linear_parts``)."""
+    h = act(linear_parts(layers[0], parts))
+    for layer in layers[1:]:
+        h = act(layer(h))
+    return h
 
 
 class _Denoiser(nn.Module):
@@ -67,6 +85,23 @@ class _Denoiser(nn.Module):
 
     def _time(self, t):
         return self.emb_layer(timestep_embedding(t, self.emb_size))
+
+    def _dropout_widths(self, n: int) -> Sequence[int]:
+        """The widths of the [B, w] inputs the forward drops out, in its
+        order, for a catalog of n items."""
+        raise NotImplementedError
+
+    def dropout_draws(self, batch_size: int, n: int, generator,
+                      keep=lambda t: t) -> tuple:
+        """The dropout uniforms the forward draws itself (none in eval mode
+        or at rate 0), for ``dropout_u``; ``keep`` maps each as it is
+        made (a dp block keeps its rows of the whole batch's)."""
+        if not self.training or self.dropout_rate == 0.0:
+            return ()
+        dev = self.emb_layer.weight.device
+        return tuple(keep(torch.rand((batch_size, w), generator=generator,
+                                     device=dev))
+                     for w in self._dropout_widths(n))
 
 
 # ---------------------------------------------------------------------------
@@ -96,6 +131,9 @@ class DNN(_Denoiser):
     def _features(self, x, x_U, index):
         return x
 
+    def _dropout_widths(self, n):
+        return (n,)
+
     def forward(self, x, t, x_U=None, index=None, graph=None,
                 rcloss: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -105,10 +143,9 @@ class DNN(_Denoiser):
         if self.norm:
             x = l2_normalize(x)
         (u,) = dropout_u or (None,)
-        h = torch.cat([dropout(x, self.dropout_rate, self.training,
-                               generator, u), emb], dim=-1)
-        for layer in self.in_layers:
-            h = self.act(layer(h))
+        h = _tower(self.in_layers,
+                   [dropout(x, self.dropout_rate, self.training, generator,
+                            u), emb], act=self.act)
         return mlp_out(self.out_layers, h, act=self.act), None
 
 
@@ -164,7 +201,7 @@ class DNNCat2(DNN):
 
     def _features(self, x, x_U, index):
         xc = torch.cat([x[..., None], x_U], dim=2).reshape(x.shape[0], -1)
-        return torch.tanh(self.cat_layer(xc))
+        return torch.tanh(linear_out(self.cat_layer, xc))
 
 
 class DNNlightGCN(DNN):
@@ -216,8 +253,13 @@ class DNNlightGCN(DNN):
         return emb[:n_user], emb[n_user:]
 
     def _features(self, x, x_U, index):
-        link = (self.frozen_lgn_user[index] @ self.frozen_lgn_item.T) > 0.0
-        return x * link.to(x.dtype)
+        items = self.frozen_lgn_item
+        link = ((lookup_rows(self.frozen_lgn_user, index) @ items.T)
+                > 0.0).to(x.dtype)
+        shard = shard_of(items)
+        if shard is not None:   # this rank's item columns of the filter
+            link = gather_from(link, shard.group, 1)
+        return x * link
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +282,9 @@ class _OneHotInputs(_Denoiser):
         x = dropout(x, self.dropout_rate, self.training, generator, u_x)
         x_U = dropout(x_U, self.dropout_rate, self.training, generator, u_xu)
         return x, x_U, emb
+
+    def _dropout_widths(self, n):
+        return (n, 2 * n)
 
 
 class DNNOneHot(_OneHotInputs):
@@ -266,8 +311,8 @@ class DNNOneHot(_OneHotInputs):
                 generator: Optional[torch.Generator] = None,
                 dropout_u: Sequence[torch.Tensor] = ()):
         x, x_U, emb = self._inputs(x, t, x_U, generator, dropout_u)
-        h = mlp_tanh(self.in_layers, torch.cat([x, emb], dim=-1))
-        h_U = mlp_tanh(self.in_layers2, torch.cat([x_U, emb], dim=-1))
+        h = _tower(self.in_layers, [x, emb])
+        h_U = _tower(self.in_layers2, [x_U, emb])
         return mlp_out(self.out_layers, torch.cat([h, h_U], dim=1)), None
 
 
@@ -282,6 +327,9 @@ class DNNOneHotEmbedding(_OneHotInputs):
     needs_index = True
     needs_graph = False
     noise_type = 0   # the tower routing of the GCN subclass; 0 is none
+    # the dp group a training batch is split over (the trainer sets it on
+    # a mesh with dp > 1): NT-Xent then runs over the whole batch
+    contrastive_group = None
 
     def __init__(self, in_dims, out_dims, emb_size: int, n_item: int,
                  n_user: int, generator: torch.Generator, device=None,
@@ -311,26 +359,30 @@ class DNNOneHotEmbedding(_OneHotInputs):
         x, x_U, emb = self._inputs(x, t, x_U, generator, dropout_u)
         routed = not self.conti
         if routed and self.noise_type == 1:
-            h_in = torch.cat([x_U[:, : x.shape[1]], emb], dim=-1)
+            h = _tower(self.in_layers, [x_U[:, : x.shape[1]], emb])
         else:
-            h_in = torch.cat([x, emb], dim=-1)
-        h = mlp_tanh(self.in_layers, h_in)
+            h = _tower(self.in_layers, [x, emb])
         if routed and self.noise_type == 2:
-            hu_in = torch.cat([x, x, emb], dim=-1)
+            h_U = _tower(self.in_layers2, [x, x, emb])
         else:
-            hu_in = torch.cat([x_U, emb], dim=-1)
-        h_U = mlp_tanh(self.in_layers2, hu_in)
+            h_U = _tower(self.in_layers2, [x_U, emb])
 
         closs = None
         if rcloss:
-            closs = nt_xent_loss(h, h_U)
+            z, z_U = h, h_U
+            if self.contrastive_group is not None:
+                # over the whole batch: a dp block gathers the others'
+                # latents (the gradient returns to each block's rows)
+                z = gather_rows(h, self.contrastive_group)
+                z_U = gather_rows(h_U, self.contrastive_group)
+            closs = nt_xent_loss(z, z_U)
             if routed and self.noise_type != 0:
                 closs = closs * 0.0
 
-        user_vecs = self.embedding_user[index]
+        user_vecs = lookup_rows(self.embedding_user, index)
         hc = torch.cat([h_U if self.conti else h, h_U, user_vecs], dim=1)
         hc = self._blend(hc, graph)
-        return cosine_scores(hc, self.embedding_item, self.cosine_eps), closs
+        return cosine_head(hc, self.embedding_item, self.cosine_eps), closs
 
 
 class DNNOneHotEmbeddingGCN(DNNOneHotEmbedding):
@@ -446,6 +498,11 @@ class DNNOneHotTransformer(_OneHotInputs):
     needs_onehot = True
     needs_index = False
     needs_graph = False
+
+    def _dropout_widths(self, n):
+        raise NotImplementedError(
+            "DNNOneHotTransformer's dropout includes [nhead, B, B] attention "
+            "weights, which a dp block cannot cut from the whole batch's")
 
     def __init__(self, in_dims, out_dims, emb_size: int,
                  generator: torch.Generator, device=None, norm: bool = False,

@@ -45,6 +45,7 @@ from pathlib import Path
 from typing import Dict, Mapping, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 BLOCK = 2048        # elements per program
@@ -205,7 +206,12 @@ def adamw_update_(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
                   wd: float = 0.0) -> None:
     """One AdamW step on one tensor, in place on p, mu and nu. CUDA
     tensors launch the kernel (or raise); CPU tensors take the plain
-    version."""
+    version. Each tensor is a rank's own (local) tensor: a DTensor
+    raises."""
+    for name, t in (("p", p), ("g", g), ("mu", mu), ("nu", nu)):
+        if isinstance(t, DTensor):
+            raise TypeError(f"adamw_update_ takes local tensors; {name} is a "
+                            "DTensor: pass its to_local()")
     if not p.is_cuda:
         new_p, new_mu, new_nu = adamw_reference(p, g, mu, nu, c, b1=b1,
                                                 b2=b2, eps=eps, wd=wd)

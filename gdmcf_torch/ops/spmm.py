@@ -47,6 +47,7 @@ from typing import Optional, Tuple
 import numpy as np
 import scipy.sparse as sp
 import torch
+from torch.distributed.tensor import DTensor
 
 _PKG = Path(__file__).resolve().parents[1]
 _SRC = _PKG / "csrc" / "spmm.cu"
@@ -442,6 +443,9 @@ def spmm_rows(op: RowOperand, x: torch.Tensor) -> torch.Tensor:
     or more (never read). A CUDA x runs the kernel, a CPU x the plain
     version. Not differentiable: an x that needs a gradient raises (the
     differentiable product is ``spmm_op``)."""
+    if isinstance(x, DTensor):
+        raise TypeError("spmm_rows takes a rank's local tensor, not a "
+                        "DTensor: pass x.to_local()")
     if op.device != x.device:
         raise ValueError(f"operand on {op.device}, x on {x.device}")
     if x.requires_grad and torch.is_grad_enabled():

@@ -11,6 +11,14 @@ temporary name and committed by ``os.replace``: a crash mid-write never
 leaves a file that ``latest_step`` or ``restore`` can see. The newest
 ``max_to_keep`` files are kept. ``train_meta.json`` is the sidecar of the
 ``extra`` dict, written only after its checkpoint commits.
+
+On a (dp, mp) mesh the format is the same: ``save`` is collective (the
+main rank's mp group gathers the whole of each sharded tensor, and only the
+main rank copies the state to the host and writes), and
+``restore`` is collective too (every rank reads the whole tensors and
+keeps its blocks). A checkpoint of a mesh run restores into a
+single-device run and the other way round. The directory must be visible
+to every rank (one host, or a shared filesystem).
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from typing import Dict, Optional
 
 import torch
 
+from gdmcf_torch.parallel.multihost import is_main_process, sync_hosts
+from gdmcf_torch.parallel.sharding import full_tensor, local_block, shard_of
 from gdmcf_torch.train.state import TrainState
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
@@ -33,19 +43,32 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 
 
-def _payload(state: TrainState) -> Dict:
-    """The state as a dict of host tensors and ints (what ``save`` writes)."""
+def _payload(state: TrainState, writer: bool = True) -> Optional[Dict]:
+    """The state as a dict of host tensors and ints (what ``save`` writes),
+    a sharded tensor and its moments whole. On a mesh the gather of a
+    sharded tensor is collective over the main rank's mp group; a rank that
+    does not write takes its part in that gather, keeps nothing, and gets
+    None."""
+    import torch.distributed as dist
+
+    def whole(t: torch.Tensor, shard) -> Optional[torch.Tensor]:
+        if shard is not None:
+            if 0 not in dist.get_process_group_ranks(shard.group):
+                return None   # not the main rank's mp group
+            t = full_tensor(t, shard)
+        return _host(t) if writer else None
+
     opt = state.opt_state
-    return {
-        "step": int(state.step),
-        "params": {k: _host(p) for k, p in state.params.items()},
-        "mu": {k: _host(m) for k, m in opt.mu.items()},
-        "nu": {k: _host(m) for k, m in opt.nu.items()},
-        "count": _host(opt.count),
-        "lt_history": _host(state.lt.history),
-        "lt_count": _host(state.lt.count),
-        "generator": state.generator.get_state(),
-    }
+    shards = {k: shard_of(p) for k, p in state.params.items()}
+    tensors = {key: {k: whole(m, shards[k]) for k, m in part.items()}
+               for key, part in (("params", state.params), ("mu", opt.mu),
+                                 ("nu", opt.nu))}
+    if not writer:
+        return None
+    return dict(tensors, step=int(state.step), count=_host(opt.count),
+                lt_history=_host(state.lt.history),
+                lt_count=_host(state.lt.count),
+                generator=state.generator.get_state())
 
 
 def _copy_into(dst: torch.Tensor, src: torch.Tensor, name: str) -> None:
@@ -63,6 +86,7 @@ class Checkpointer:
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.writer = is_main_process()
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
         self._pending_extra: Optional[dict] = None
@@ -98,12 +122,14 @@ class Checkpointer:
         # commit any earlier background save AND flush its deferred sidecar
         # first: a blocking save would otherwise drop that sidecar
         self.wait()
-        payload = _payload(state)
-        payload["step"] = step
-        self._pending_extra = extra
-        self._thread = threading.Thread(target=self._write,
-                                        args=(step, payload), daemon=True)
-        self._thread.start()
+        payload = _payload(state, self.writer)
+        if self.writer:
+            payload["step"] = step
+            self._pending_extra = extra
+            self._thread = threading.Thread(target=self._write,
+                                            args=(step, payload),
+                                            daemon=True)
+            self._thread.start()
         if block:
             self.wait()
 
@@ -122,7 +148,14 @@ class Checkpointer:
     def wait(self) -> None:
         """Block until a background save has committed, then write its
         deferred ``extra`` sidecar. Raises what the background write
-        raised."""
+        raised. On a mesh, every rank returns once the main rank has
+        committed (collective)."""
+        try:
+            self._join()
+        finally:
+            sync_hosts("checkpoint")
+
+    def _join(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
@@ -151,6 +184,7 @@ class Checkpointer:
         device: the parameters stay the live module's tensors, so the
         ``TrainState.params`` aliases and the model stay valid. Returns the
         template."""
+        self.wait()   # on a mesh: the main rank's writes have committed
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
@@ -164,7 +198,17 @@ class Checkpointer:
                     f"checkpoint {key} names {sorted(data[key])} differ from "
                     f"the template's {sorted(live)}")
             for name, t in live.items():
-                _copy_into(t, data[key][name], f"{key}.{name}")
+                src = data[key][name]
+                shard = shard_of(template.params[name])
+                if shard is not None:   # a mesh rank keeps its block
+                    if src.shape[shard.dim] != t.shape[shard.dim] * \
+                            shard.count:
+                        raise ValueError(
+                            f"checkpoint tensor {key}.{name} is "
+                            f"{src.dtype} {tuple(src.shape)}: it was saved "
+                            "under a different geometry or config")
+                    src = local_block(src, shard)
+                _copy_into(t, src, f"{key}.{name}")
         _copy_into(opt.count, data["count"], "count")
         _copy_into(template.lt.history, data["lt_history"], "lt_history")
         _copy_into(template.lt.count, data["lt_count"], "lt_count")

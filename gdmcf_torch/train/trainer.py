@@ -22,6 +22,21 @@ constant one.
 ``compute_dtype`` maps to the matmul precision on the GPU, for training and
 eval: ``bfloat16`` (the default) is the JAX package's "default" precision,
 which on a GPU is TF32, so TF32 is on; ``float32`` turns TF32 off.
+
+On a (dp, mp) mesh (``mesh_dp * mesh_mp > 1``) the Trainer is one rank of a
+world of dp * mp processes started by ``parallel.multihost.initialize``; a
+mesh config without that world raises, and a world without a mesh config
+too. The model's catalog-sized tensors are sharded over mp by
+``parallel.sharding.DEFAULT_RULES``; each dp group trains on its own
+block of every global batch (``train_step`` takes the rank's block;
+``train_epoch`` feeds each dp group its ``RowSlice``), every rank draws the
+global batch's randomness and keeps its rows (a ``parallel.rows.RowBlock``
+passed to the engine), the gradients are summed over dp and AdamW (the
+same kernel) updates each rank's own blocks. Evaluation batches are
+dp-sharded (each dp group scores its block and the metric sums are reduced
+bit-exactly at the end) unless ``eval_replicated``; the top-k is
+shard-local and merged over mp. Only the main rank logs and writes
+checkpoints; every rank restores them.
 """
 
 from __future__ import annotations
@@ -43,6 +58,9 @@ from gdmcf_torch.ops.fused_adamw import fused_adamw_apply
 from gdmcf_torch.ops.metrics import (MetricAccumulator,
                                      compute_topn_accuracy, print_results)
 from gdmcf_torch.ops.topk import chunked_topk
+from gdmcf_torch.parallel.rows import RowBlock
+from gdmcf_torch.parallel.mesh import axis_group, axis_index, axis_size
+from gdmcf_torch.parallel.multihost import is_main_process, process_count
 from gdmcf_torch.train.state import TrainState, create_train_state
 
 
@@ -57,19 +75,79 @@ def matmul_precision(tf32: bool):
         torch.set_float32_matmul_precision(old)
 
 
+def _rank_device(device) -> torch.device:
+    """A mesh rank's device: the one named, or ``cuda:<local rank>`` for a
+    bare ``cuda``."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        from gdmcf_torch.parallel.multihost import local_rank
+
+        lr, cards = local_rank(), torch.cuda.device_count()
+        if lr >= cards:
+            raise ValueError(
+                f"local rank {lr} has no card of its own ({cards} CUDA "
+                "devices): name the device (device='cuda:0', with "
+                "initialize(backend='gloo')) to share one card between "
+                "ranks")
+        dev = torch.device("cuda", lr)
+    return dev
+
+
+def _check_mesh_supported(cfg) -> None:
+    """The options whose mesh form is not ported (ROADMAP.md §A item 9,
+    what waits)."""
+    dp = cfg.mesh_dp
+    if cfg.OneHotMatrix == 1:
+        raise NotImplementedError(
+            "OneHotMatrix=1 on a mesh (the block input spans the batch) is "
+            "not ported yet: ROADMAP.md §A item 9, what waits")
+    if cfg.symmetric_gcn:
+        raise NotImplementedError(
+            "symmetric_gcn on a mesh (the GCN reads the whole item table "
+            "and the batch's degrees) is not ported yet: ROADMAP.md §A item "
+            "9, what waits")
+    if dp > 1 and cfg.backbone == "DNNOneHotTransformer":
+        raise NotImplementedError(
+            "DNNOneHotTransformer on a dp-sharded batch (its attention runs "
+            "across batch rows) is not ported yet: ROADMAP.md §A item 9, "
+            "what waits")
+
+
 class Trainer:
     def __init__(self, cfg, n_user: int, n_item: int, train_csr=None,
                  device=None):
         self.cfg = cfg
         self.n_user = n_user
         self.n_item = n_item
-        self.device = resolve_device(cfg.device if device is None else device)
+        self.mesh = None
+        self.placements = None   # {name: spec} on a mesh
+        device = cfg.device if device is None else device
+        if cfg.mesh_dp * cfg.mesh_mp > 1 or process_count() > 1:
+            # one rank of a (dp, mp) world: the mesh must cover the world
+            # exactly; nothing runs quietly on one rank
+            from gdmcf_torch.parallel.mesh import make_mesh
+
+            _check_mesh_supported(cfg)
+            self.device = _rank_device(device)
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            self.mesh = make_mesh(cfg.mesh_dp, cfg.mesh_mp, self.device.type)
+        else:
+            self.device = resolve_device(device)
         # parameter init draws from one generator seeded by random_seed
+        # (on a mesh every rank draws the whole model, then keeps its
+        # blocks: the init of the single-device run)
         self.generator = torch.Generator(self.device).manual_seed(
             cfg.random_seed)
         self.model = build_model(cfg, n_user, n_item, train_csr=train_csr,
                                  generator=self.generator,
                                  device=self.device)
+        if self.mesh is not None:
+            from gdmcf_torch.parallel.sharding import shard_params
+
+            self.placements = shard_params(self.model, self.mesh)
+            if self._dp() > 1 and hasattr(self.model, "contrastive_group"):
+                self.model.contrastive_group = axis_group(self.mesh, "dp")
         self.model.eval()
         if cfg.noise_scale == 0.0 and getattr(self.model, "needs_graph",
                                               False):
@@ -98,7 +176,54 @@ class Trainer:
         return create_train_state(self.cfg, self.model, self.device)
 
     def num_params(self, state: TrainState) -> int:
-        return sum(p.numel() for p in state.params.values())
+        """Elements of the whole model (a sharded tensor counts whole)."""
+        from gdmcf_torch.parallel.sharding import shard_of
+
+        return sum(p.numel() * (shard_of(p).count if shard_of(p) else 1)
+                   for p in state.params.values())
+
+    # -- the mesh ------------------------------------------------------------
+    def _dp(self) -> int:
+        return axis_size(self.mesh, "dp")
+
+    def row_block(self, block: int) -> Optional[RowBlock]:
+        """This rank's ``RowBlock`` when it holds its dp group's ``block``
+        rows of a batch sharded over dp (None without one). ``train_step``
+        and the evaluations make their own; a caller that hands
+        ``eval_step`` its dp block of a batch passes it."""
+        dp = self._dp()
+        if dp == 1:
+            return None
+        i = axis_index(self.mesh, "dp")
+        return RowBlock(i * block, (i + 1) * block, block * dp,
+                        axis_group(self.mesh, "dp"))
+
+    def _put_batch(self, x: np.ndarray, idx: np.ndarray,
+                   replicate: bool = False):
+        """Host rows and ids -> device tensors. On a mesh, ``replicate``:
+        every rank passes the identical full batch; otherwise the rows are
+        this rank's dp block (``_put_batch_multihost``)."""
+        if self.mesh is not None and not replicate:
+            return self._put_batch_multihost(x, idx)
+        return self._to_device(x), self._to_device(idx)
+
+    def _put_batch_multihost(self, x: np.ndarray, idx: np.ndarray):
+        """A dp block of a global batch: every dp group must feed a block
+        of the same size (the global batch is their concatenation in dp
+        order), or the collective steps would misalign."""
+        from gdmcf_torch.parallel.multihost import allgather_host_vectors
+
+        dp = self._dp()
+        if dp > 1:
+            sizes = allgather_host_vectors(
+                np.asarray([x.shape[0], idx.shape[0]], np.int64),
+                group=axis_group(self.mesh, "dp"))
+            if (sizes != sizes[0]).any() or sizes[0][0] != sizes[0][1]:
+                raise ValueError(
+                    f"dp groups feed blocks of {sizes[:, 0].tolist()} rows "
+                    f"and {sizes[:, 1].tolist()} ids: the global batch must "
+                    f"divide evenly over mesh dp={dp}")
+        return self._to_device(x), self._to_device(idx)
 
     def _lr_at(self, step: int) -> float:
         """Learning rate of the step that starts at ``step`` completed
@@ -167,25 +292,53 @@ class Trainer:
         index = index.to(self.device).long()
         self.model.train()
         names = list(state.params)
+        block = self.row_block(x.shape[0])
+        if block is not None and draws is None:
+            # the whole batch's draws, as one device would draw them
+            draws = self.diffusion.train_draws(
+                state.lt, block.total, x.shape[1], state.generator,
+                model=self.model, keep=block.cut)
         with matmul_precision(self.tf32):
             loss_vec, new_lt, _ = self.diffusion.training_losses(
                 self.model, x, index, state.lt, reweight=self.cfg.reweight,
-                generator=state.generator, draws=draws)
-            loss = loss_vec.mean()
+                generator=state.generator, draws=draws, block=block)
+            if block is None:
+                loss = objective = loss_vec.mean()
+            else:
+                # the mean over the global batch: each dp group's share;
+                # the gradients sum over dp below
+                objective = loss_vec.sum() / block.total
+                loss = block.gather(loss_vec).mean()
             # a parameter off the path (the GCN at gcnLayerNum 0) gets
             # zeros, as under jax.grad
             grads = torch.autograd.grad(
-                loss, [state.params[k] for k in names], allow_unused=True,
-                materialize_grads=True)
-        return (loss.detach(),
-                {k: g.contiguous() for k, g in zip(names, grads)}, new_lt)
+                objective, [state.params[k] for k in names],
+                allow_unused=True, materialize_grads=True)
+        grads = {k: g.contiguous() for k, g in zip(names, grads)}
+        if block is not None:
+            from gdmcf_torch.parallel.collectives import all_reduce_
+
+            group = axis_group(self.mesh, "dp")
+            for g in grads.values():
+                all_reduce_(g, group)
+        return loss.detach(), grads, new_lt
 
     def apply_grads(self, state: TrainState, grads: Dict[str, torch.Tensor],
                     new_lt: LtState) -> TrainState:
         """The optional global-norm clip, then AdamW in place."""
         if self.cfg.grad_clip_norm > 0.0:
-            gn = torch.sqrt(sum(torch.sum(g.float() ** 2)
-                                for g in grads.values()))
+            squares = [torch.sum(g.float() ** 2) for g in grads.values()]
+            if self.mesh is not None:
+                # the global norm: a sharded tensor's squares sum over mp;
+                # the dp replicas already hold the reduced gradient
+                from gdmcf_torch.parallel.collectives import all_reduce
+                from gdmcf_torch.parallel.sharding import shard_of
+
+                squares = [
+                    all_reduce(sq, shard_of(state.params[k]).group)
+                    if shard_of(state.params[k]) else sq
+                    for k, sq in zip(grads, squares)]
+            gn = torch.sqrt(sum(squares))
             scale = torch.clamp_max(
                 self.cfg.grad_clip_norm / torch.clamp_min(gn, 1e-12), 1.0)
             grads = {k: (g.float() * scale).to(g.dtype)
@@ -210,16 +363,48 @@ class Trainer:
         ``NativeCSR``) in shuffled batches of ``batch_size``; returns
         (state, the sum of the step losses). The losses stay on the device
         until the epoch ends. ``train_steps_per_call`` needs no grouping
-        here: K fused steps of the JAX package are K single steps."""
+        here: K fused steps of the JAX package are K single steps.
+
+        On a mesh each dp group trains on its own ``RowSlice`` of the rows
+        (``local_row_range``) with its 1/dp block of every global batch,
+        and the trailing partial batch is always dropped: every group must
+        run the same number of collective steps."""
+        bs = self.cfg.batch_size
+        drop_last = self.cfg.drop_last
+        offset = 0
+        if self.mesh is not None:
+            from gdmcf_torch.data.loader import RowSlice
+            from gdmcf_torch.parallel.multihost import local_row_range
+
+            dp = self._dp()
+            if bs % dp:
+                raise ValueError(
+                    f"batch_size {bs} must divide evenly over mesh dp={dp}: "
+                    "each dp group feeds a contiguous 1/dp block of the "
+                    "global batch")
+            rows = local_row_range(len(dataset), self.mesh)
+            dataset = RowSlice(dataset, rows)
+            offset = rows.start
+            bs //= dp
+            drop_last = True
+            if len(dataset) < bs:
+                raise ValueError(
+                    f"the dp group's shard has {len(dataset)} rows < its "
+                    f"block of the batch {bs}: no full global batch can be "
+                    "assembled (reduce batch_size or mesh dp)")
         pack = (self.cfg.wire_format == "packed"
                 and getattr(dataset, "binary", False))
         losses = []
-        for x, idx in epoch_batches(dataset, self.cfg.batch_size, rng,
+        for x, idx in epoch_batches(dataset, bs, rng,
                                     shuffle=self.cfg.shuffle,
-                                    drop_last=self.cfg.drop_last,
-                                    packed=pack):
-            state, loss = self.train_step(state, torch.from_numpy(x),
-                                          torch.from_numpy(idx))
+                                    drop_last=drop_last, packed=pack):
+            if offset:
+                idx = idx + np.int32(offset)   # slice position -> user id
+            if self.mesh is not None:   # this rank's dp block, checked
+                x_t, idx_t = self._put_batch(x, idx)
+            else:
+                x_t, idx_t = torch.from_numpy(x), torch.from_numpy(idx)
+            state, loss = self.train_step(state, x_t, idx_t)
             losses.append(loss)
         total = float(torch.stack(losses).sum()) if losses else 0.0
         return state, total
@@ -228,41 +413,85 @@ class Trainer:
     @torch.inference_mode()
     def eval_step(self, x: torch.Tensor, index: torch.Tensor,
                   mask: torch.Tensor, sampling_steps: int, top_k: int,
-                  generator=None, draws=None, return_scores: bool = False):
+                  generator=None, draws=None, return_scores: bool = False,
+                  block: Optional[RowBlock] = None):
         """p_sample -> mask seen items -> top-k item ids [B, top_k].
         OneHotMatrix 1 samples the block of the rows, zeroes scores <= 0.1
         and ranks the block's upper-right [B, n_item] part, as the
         reference does.
 
-        ``return_scores`` also returns the masked scores before top-k."""
+        ``return_scores`` also returns the masked scores before top-k.
+        ``block``: x is this rank's ``row_block`` of a dp-sharded batch;
+        ``draws``, if given, are its rows of the whole batch's."""
         self.model.eval()
         x = self._unpack(x)
         mask = self._unpack(mask)
-        block = self.cfg.OneHotMatrix == 1
+        onehot_block = self.cfg.OneHotMatrix == 1
+        if block is not None and draws is None:
+            # the whole batch's draws, as one device would draw them
+            draws = self.diffusion.p_sample_draws(
+                block.total, x.shape[1], sampling_steps,
+                self.cfg.sampling_noise, generator, x.device, keep=block.cut)
         with matmul_precision(self.tf32):
             scores = self.diffusion.p_sample(
-                self.model, self._to_block_onehot(x) if block else x, index,
-                sampling_steps=sampling_steps,
+                self.model, self._to_block_onehot(x) if onehot_block else x,
+                index, sampling_steps=sampling_steps,
                 sampling_noise=self.cfg.sampling_noise, generator=generator,
-                draws=draws)
-        if block:
+                draws=draws, block=block)
+        if onehot_block:
             b = x.shape[0]
             scores = scores.masked_fill(scores <= 0.1, 0.0)[:b, b:]
         scores = scores.masked_fill(mask > 0, float("-inf"))
-        _, idx = chunked_topk(scores, top_k)
+        n = scores.shape[1]
+        mp = axis_size(self.mesh, "mp")
+        if mp > 1 and n // mp >= top_k:
+            # shard-local top-k + merge over mp: only [B, k] crosses; the
+            # catalog pads with -inf to a multiple of mp
+            from gdmcf_torch.ops.topk import sharded_topk
+
+            pad = (-n) % mp
+            if pad:
+                scores = torch.nn.functional.pad(scores, (0, pad),
+                                                 value=float("-inf"))
+            _, idx = sharded_topk(self.mesh, scores, top_k)
+            # padded columns win only in all--inf rows; keep ids in range
+            idx = idx.clamp_max(n - 1)
+            scores = scores[:, :n]
+        else:
+            _, idx = chunked_topk(scores, top_k)
         return (idx, scores) if return_scores else idx
 
     # -- evaluation --------------------------------------------------------
-    def _check_single_process(self) -> None:
-        cfg = self.cfg
-        dist = torch.distributed
-        if (cfg.mesh_dp * cfg.mesh_mp > 1
-                or (dist.is_available() and dist.is_initialized()
-                    and dist.get_world_size() > 1)):
-            raise NotImplementedError(
-                "multi-process evaluation (dp-sharded eval batches and the "
-                "cross-process metric reduce) is not ported yet: ROADMAP.md "
-                "§A item 9")
+    def _eval_shardable(self, b: int) -> bool:
+        """True when a size-``b`` eval batch dp-shards: each dp group
+        scores its 1/dp block and the metric sums reduce bit-exactly at the
+        end, instead of every rank scoring all rows."""
+        if self.mesh is None or self.cfg.eval_replicated:
+            return False
+        dp = self._dp()
+        return dp > 1 and b % dp == 0
+
+    def _local_eval_slice(self, start: int, b: int):
+        """This rank's (first row, length) of a size-``b`` sharded eval
+        batch starting at global row ``start``: its dp group's block."""
+        lb = b // self._dp()
+        return start + axis_index(self.mesh, "dp") * lb, lb
+
+    def _reduce_metric_acc(self, acc):
+        """Sum the metric accumulators of the dp groups (one rank each:
+        the mp ranks of a group hold the same sums; the bytes of the
+        float64 sums travel exactly) and return the global result.
+        Collective."""
+        from gdmcf_torch.parallel.multihost import allgather_host_vectors
+
+        acc._drain()
+        payload = np.concatenate([acc.sums.ravel(),
+                                  np.asarray([acc.n_users], np.float64)])
+        total = allgather_host_vectors(payload)[::axis_size(self.mesh,
+                                                            "mp")].sum(0)
+        acc.sums = total[:-1].reshape(acc.sums.shape)
+        acc.n_users = int(round(total[-1]))
+        return acc.result()
 
     def _eval_generator(self, generator):
         if generator is not None:
@@ -288,26 +517,37 @@ class Trainer:
 
         Binary ground truth is summed on the device against a bit-packed
         cache: the rankings never leave the device and the sums come back
-        in one transfer per call."""
-        self._check_single_process()
+        in one transfer per call. On a mesh, dp-sharded batches are
+        accumulated by each dp group for its own rows and the sums reduced
+        at the end; a batch that runs replicated (a partial one dp does not
+        divide) is counted once, by the main rank."""
         cfg = self.cfg
         generator = self._eval_generator(generator)
         cached = self._prepare_eval_batches(eval_rows, mask_matrix,
                                             drop_last=drop_last)
         top_k = int(max(topn))   # unsorted topN still ranks enough items
-        gt_dev = self._prepare_gt_batches(gt_matrix, cached, eval_rows,
-                                          mask_matrix, drop_last)
+        use_reduce = any(c[4] for c in cached)
+        gt_dev = None if use_reduce else self._prepare_gt_batches(
+            gt_matrix, cached, eval_rows, mask_matrix, drop_last)
         acc = MetricAccumulator(topn)
         all_idx, kept_users = [], []
-        for i, (start, rows, uids, mask) in enumerate(cached):
-            idx = self.eval_step(rows, uids, mask,
-                                 sampling_steps=cfg.sampling_steps,
-                                 top_k=top_k, generator=generator)
-            if gt_dev is not None:
+        for i, (start, rows, uids, mask, sharded) in enumerate(cached):
+            idx = self.eval_step(
+                rows, uids, mask, sampling_steps=cfg.sampling_steps,
+                top_k=top_k, generator=generator,
+                block=self.row_block(rows.shape[0]) if sharded else None)
+            if use_reduce:
+                # a sharded entry holds this rank's rows: its rankings
+                # pair with the ground truth of its own users
+                if sharded or is_main_process():
+                    acc.add(gt_matrix[start:start + rows.shape[0]], idx)
+            elif gt_dev is not None:
                 acc.add_packed(gt_dev[i], idx, self.n_item)
             else:   # count-valued ground truth: the host path
                 all_idx.append(idx.cpu().numpy())
                 kept_users.append(np.arange(start, start + rows.shape[0]))
+        if use_reduce:
+            return self._reduce_metric_acc(acc)
         if gt_dev is not None:
             return acc.result()
         users = np.concatenate(kept_users)
@@ -331,7 +571,7 @@ class Trainer:
         if is_binary(gt_matrix):
             dev = [self._to_device(pack_rows(
                 gt_matrix[start:start + rows.shape[0]]))
-                for start, rows, _u, _m in cached]
+                for start, rows, *_ in cached]
         if len(self._gt_cache) >= 4:
             self._gt_cache.pop(0)
         self._gt_cache.append((key, dev))
@@ -340,12 +580,13 @@ class Trainer:
     def _prepare_eval_batches(self, eval_rows: np.ndarray,
                               mask_matrix: np.ndarray,
                               drop_last: Optional[bool] = None):
-        """Device-resident eval batches (start, rows, uids, mask), cached
-        across evaluations: the rows and masks are constant during
+        """Device-resident eval batches (start, rows, uids, mask, sharded),
+        cached across evaluations: the rows and masks are constant during
         training. Entries hold the source arrays and match them with ``is``
         (an ``id()`` of a collected temporary could be reused by another
         array). Bit-packed when the wire format is packed and both arrays
-        are binary."""
+        are binary. A dp-sharded entry holds this rank's block only, and
+        ``start`` is its first row."""
         cfg = self.cfg
         drop = cfg.drop_last if drop_last is None else drop_last
         for rows_ref, mask_ref, bs_key, drop_key, batches in self._eval_cache:
@@ -358,10 +599,15 @@ class Trainer:
                 and is_binary(mask_matrix))
         batches = []
         for start in range(0, stop, bs):
-            rows_np = eval_rows[start:start + bs]
-            uids = self._to_device(np.arange(start, start + rows_np.shape[0],
-                                             dtype=np.int64))
-            rows = self._to_device(pack_rows(rows_np) if pack else rows_np)
+            b = min(bs, stop - start)
+            sharded = self._eval_shardable(b)
+            if sharded:   # this rank uploads its dp group's block only
+                start, b = self._local_eval_slice(start, b)
+            rows_np = eval_rows[start:start + b]
+            rows, uids = self._put_batch(
+                pack_rows(rows_np) if pack else rows_np,
+                np.arange(start, start + rows_np.shape[0], dtype=np.int64),
+                replicate=not sharded)
             if mask_matrix is eval_rows:
                 # the train-rows evals mask with the array they score:
                 # reuse the device rows instead of a second copy
@@ -370,7 +616,7 @@ class Trainer:
                 mask_np = mask_matrix[start:start + rows_np.shape[0]]
                 mask = self._to_device(pack_rows(mask_np) if pack
                                        else mask_np)
-            batches.append((start, rows, uids, mask))
+            batches.append((start, rows, uids, mask, sharded))
         if len(self._eval_cache) >= 4:   # bound the device memory held
             self._eval_cache.pop(0)
         self._eval_cache.append((eval_rows, mask_matrix, cfg.batch_size,
@@ -387,8 +633,8 @@ class Trainer:
 
         input_csrs / mask_csrs: lists of NativeCSR whose per-row union is
         the model input / the history mask (e.g. [train] or [train,
-        valid])."""
-        self._check_single_process()
+        valid]). On a mesh as ``evaluate``: each dp group gathers, packs
+        and scores its block of a shardable batch."""
         cfg = self.cfg
         generator = self._eval_generator(generator)
         n = len(input_csrs[0])
@@ -412,25 +658,36 @@ class Trainer:
                 out = np.clip(out + c.gather(idx), 0.0, 1.0)
             return pack_rows(out) if pack else out
 
-        for start in range(0, stop, bs):
+        starts = list(range(0, stop, bs))
+        use_reduce = any(self._eval_shardable(min(s + bs, n) - s)
+                         for s in starts)
+        for start in starts:
             idx = np.arange(start, min(start + bs, n), dtype=np.int64)
-            # bit-packed ground truth and on-device sums: dense [B, n_item]
-            # rows would be the largest per-batch transfer
-            gt = (gt_csr.gather_packed(idx) if packed_gt
-                  else gt_csr.gather(idx))
+            sharded = self._eval_shardable(idx.size)
+            if sharded:
+                lo, lb = self._local_eval_slice(start, idx.size)
+                idx = np.arange(lo, lo + lb, dtype=np.int64)
             rows = union(input_csrs, idx)
             # the valid evaluation masks with its own input rows
             mask = (rows if list(mask_csrs) == list(input_csrs)
                     else union(mask_csrs, idx))
-            rows_d = self._to_device(rows)
+            rows_d, idx_d = self._put_batch(rows, idx, replicate=not sharded)
             mask_d = rows_d if mask is rows else self._to_device(mask)
-            pred = self.eval_step(rows_d, self._to_device(idx), mask_d,
-                                  sampling_steps=cfg.sampling_steps,
-                                  top_k=top_k, generator=generator)
+            pred = self.eval_step(
+                rows_d, idx_d, mask_d, sampling_steps=cfg.sampling_steps,
+                top_k=top_k, generator=generator,
+                block=self.row_block(idx.size) if sharded else None)
+            if use_reduce and not (sharded or is_main_process()):
+                continue   # a replicated batch counts once
+            # bit-packed ground truth and on-device sums: dense [B, n_item]
+            # rows would be the largest per-batch transfer
             if packed_gt:
-                acc.add_packed(self._to_device(gt), pred, self.n_item)
+                acc.add_packed(self._to_device(gt_csr.gather_packed(idx)),
+                               pred, self.n_item)
             else:
-                acc.add(gt, pred.cpu().numpy())
+                acc.add(gt_csr.gather(idx), pred.cpu().numpy())
+        if use_reduce:
+            return self._reduce_metric_acc(acc)
         return acc.result()
 
     # -- the main loop -------------------------------------------------------
@@ -451,8 +708,14 @@ class Trainer:
         Training starts from the module's current parameters (a new Trainer
         holds its seeded init). ``train_steps_per_call``,
         ``eval_batches_per_call`` and ``prefetch_batches`` are accepted and
-        mean single steps here."""
+        mean single steps here. On a mesh every rank runs ``fit``; only the
+        main rank logs, and checkpoints are written by it from the whole
+        tensors and restored by every rank."""
         cfg = self.cfg
+        if not is_main_process():   # every rank computes, one rank speaks
+            def log(*_a, **_k):
+                return None
+            metric_logger = None
         n_rows = cfg.n_user_cap or train_csr.shape[0]
 
         def dense_rows(csr):
@@ -475,7 +738,9 @@ class Trainer:
             dataset = train_n
 
         bs = cfg.batch_size
-        steps_per_epoch = max(len(dataset) // bs if cfg.drop_last
+        # a mesh always drops the trailing partial batch (train_epoch)
+        drop = cfg.drop_last or self.mesh is not None
+        steps_per_epoch = max(len(dataset) // bs if drop
                               else -(-len(dataset) // bs), 1)
         if self._lr_scheduled and self._lr_total_steps == 0:
             # decay horizon = this run's optimizer steps, set before step 1
@@ -551,7 +816,8 @@ class Trainer:
                     test_results = self.evaluate_streaming(
                         state, test_inputs, test_n, [train_n, valid_n], topn,
                         drop_last=False if cfg.tst_w_val else None)
-                print_results(None, valid_results, test_results)
+                if is_main_process():
+                    print_results(None, valid_results, test_results)
                 if metric_logger is not None:
                     metric_logger.eval_results(epoch, "valid", topn,
                                                valid_results)
@@ -592,7 +858,7 @@ class Trainer:
                                       epoch_s=time.time() - start_time)
         log("=" * 54)
         log(f"End. Best Epoch {best_epoch:03d}")
-        if best_results is not None:
+        if best_results is not None and is_main_process():
             print_results(None, None, best_results)
         if checkpointer is not None:
             checkpointer.wait()   # commit any background save

@@ -138,11 +138,11 @@ def test_evaluate_caches_device_batches_and_counts_partial_batches(
 
 
 def test_multi_process_eval_names_its_roadmap_item():
-    tt = TTrainer(TConfig(device="cpu", dims=[8], mesh_dp=2), 4, 5)
-    with pytest.raises(NotImplementedError, match="§A item 9"):
-        tt.evaluate(None, np.zeros((4, 5), np.float32),
-                    np.zeros((4, 5), np.float32),
-                    np.zeros((4, 5), np.float32), [2])
+    # multi-process evaluation is ported (ROADMAP.md §A item 9, done; the
+    # checks are tests/test_torch_parallel_mesh.py): a mesh config without
+    # its world of ranks raises before anything runs on one process
+    with pytest.raises(ValueError, match="needs a world of 2 ranks"):
+        TTrainer(TConfig(device="cpu", dims=[8], mesh_dp=2), 4, 5)
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,16 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert len(MODULES) >= 15 and "gdmcf_torch.pretrain_cli" in MODULES
 
 
+def test_the_parallel_modules_are_among_those_checked():
+    """``gdmcf_torch.parallel.*`` is imported by the check above (the
+    module list is every file of the package), so the mesh layer imports
+    neither JAX nor the JAX package either."""
+    parallel = {m for m in MODULES if m.startswith("gdmcf_torch.parallel")}
+    assert parallel == {f"gdmcf_torch.parallel{s}" for s in (
+        "", ".collectives", ".embed", ".layers", ".mesh", ".multihost",
+        ".rows", ".sharding")}
+
+
 def test_pretraining_names_import_without_jax():
     code = ("import sys\n"
             "from gdmcf_torch.models.lightgcn import (bpr_loss, bpr_step, "
