@@ -182,10 +182,37 @@ Phases (any failure exits non-zero):
      swapped pairs whose single-process scores differ by less than 1e-5
      (counted); step p50 and each rank's peak memory, labelled as ranks
      sharing one card (not a scaling number);
- 20. the kernel JSON line, the card's name and power limit, and as the
+ 20. bfloat16 parameter storage with float32 masters at the Amazon-Book
+     width (configs/amazonOneEmbGcn.yaml on the graph of phases 3-19):
+     one train_epoch (272 steps) under bf16_weights ["in_layers/",
+     "embedding_item"] (3 tensors in bfloat16) and one under param_dtype
+     bfloat16 (all 13) with prefetch_batches 2, each checked for finite
+     losses, every tensor moved, the storage dtypes and masters as
+     selected (each stored tensor its master's rounding), K1 launches by
+     form (fused_adamw and fused_adamw_master, one per tensor per step)
+     and the epoch's mean loss within BF16_LOSS_BAND of phase 6's float32
+     epoch; epoch time, step p50/p90 and peak memory beside phase 6's;
+     then on the param_dtype run: the K1 master form on the 13 tensors
+     against adamw_master_reference within master_update_bounds, two
+     launches bitwise equal, its time per pass against its plain version
+     and the byte bound (no PyTorch call computes it); a checkpoint, its
+     round trip bitwise with the masters, build_recommender from it
+     serving the in-memory trainer's ids for 256 users, phase 7's request
+     checks and request p50; one step under the NT-Xent remat form
+     against the softmax form (loss and gradients); the epoch at
+     prefetch_batches 0 and 2 (time only); three steps inside
+     gdmcf_torch.utils.profiling.trace, the trace written to
+     chiprun_out/bf16_trace/trace.json;
+ 21. the kernel JSON line, the card's name and power limit, and as the
      last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --mesh-phase     # phase 19 alone, no JSON line
+    python3 chip_smoke.py --precision-phase
+                                           # phases 5, 6 and 20 alone: the
+                                           # float32 epoch, then the
+                                           # bfloat16 ones; prints the
+                                           # master form's kernel entry,
+                                           # no JSON line of all kernels
     python3 chip_smoke.py --mesh-diagnostic
                                            # what phase 19's parameter
                                            # limits rest on: the first
@@ -253,6 +280,15 @@ VARIANT_GATES = (
     ("ablation", "ref_ablation_s*.json",
      ("jax_ablation_head.json", "pooled")),
 )
+# phase 20: the JAX package's own bf16_weights selection
+# (tests/test_bf16_weights.py, docs/BENCH_NOTES.md); the band of a bfloat16
+# epoch's mean loss against the float32 epoch of phase 6 at the same seed,
+# |mean / float32 mean - 1|, the JAX package's own short-horizon bound
+# (tests/test_bf16_weights.py::test_loss_decreases_and_tracks_f32), set
+# before the first card run (PERF.md section 6)
+BF16_SEL = ("in_layers/", "embedding_item")
+BF16_LOSS_BAND = 0.02
+PHASE6 = {}   # phase 6's float32 epoch, printed beside phase 20's
 # phase 17: concurrent clients -> 1-user requests each client sends
 HTTP_CLIENTS = {1: 60, 16: 40, 64: 25}
 HTTP_USERS = 512               # distinct users the clients take in turn
@@ -500,6 +536,20 @@ def tpu_kernel_line(root: str, name: str, module: str = "spmm.py") -> str:
                 if line.startswith(f"def {name}("):
                     return f"{os.path.relpath(path, root)}:{no}"
     raise FileNotFoundError(f"no Pallas kernel {name} in {root}")
+
+
+def jax_source_line(root: str, module: str, needle: str) -> str:
+    """'file:line' of the first line holding ``needle`` in ``ops/<module>``
+    of the JAX package (read as text, never imported)."""
+    import glob
+    for path in sorted(glob.glob(os.path.join(root, "*", "ops", module))):
+        if os.path.relpath(path, root).startswith("gdmcf_torch"):
+            continue
+        with open(path) as fh:
+            for no, line in enumerate(fh, 1):
+                if needle in line:
+                    return f"{os.path.relpath(path, root)}:{no}"
+    raise FileNotFoundError(f"no {needle!r} in {module} under {root}")
 
 
 def library_operand(op, torch, n_x):
@@ -904,6 +954,8 @@ def flagship_train(args, root, card, torch, csr, worst):
     assert launches["fused_adamw"] == n_leaves * steps
     assert bool((state.lt.count == cfg.history_num_per_term).all()), \
         "an Lt row is not full"
+    PHASE6.update(epoch_s=epoch_s, mean_loss=total / steps,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     for k, p in state.params.items():
         assert bool((p.detach() != before[k]).any()), f"{k} did not move"
     del before
@@ -915,6 +967,7 @@ def flagship_train(args, root, card, torch, csr, worst):
     worst = max(worst, step_err)
 
     p50, p90 = step_times(trainer, state, batches, torch)
+    PHASE6.update(p50=p50, p90=p90)
     log(f"flagship train step (batch {cfg.batch_size}): p50 {p50:.3f} ms, "
         f"p90 {p90:.3f} ms over 20 steps, "
         f"{cfg.batch_size / p50 * 1e3:.1f} examples/s; matmul work "
@@ -2530,6 +2583,306 @@ def precision_pairs(root, card, torch):
 
 
 # phase 19: (dp, mp) meshes of ranks sharing the one card over gloo
+def master_pass(FA, torch, state, grads, lr):
+    """Phase 20 (a): the K1 master form on clones of every bfloat16 tensor
+    of ``state`` (twice, from the same inputs, on two sets of clones)
+    against adamw_master_reference within master_update_bounds. Returns
+    (the largest error, the tensors over their bounds, one set of updated
+    clones as a FusedAdamWState and its params, bitwise equal)."""
+    opt = state.opt_state
+    count = opt.count + 1
+    c = FA.step_scalars(count, lr)
+
+    def clones():
+        return ({k: p.detach().clone() for k, p in state.params.items()},
+                {k: m.clone() for k, m in opt.mu.items()},
+                {k: m.clone() for k, m in opt.nu.items()},
+                {k: m.clone() for k, m in opt.master.items()})
+    runs = [clones(), clones()]
+    for p, mu, nu, m in runs:
+        for k in p:
+            FA.adamw_master_update_(p[k], grads[k], mu[k], nu[k], m[k], c)
+    torch.cuda.synchronize()
+    twice = all(torch.equal(a[k], b[k]) for a, b in zip(*runs) for k in a)
+    err, over = 0.0, 0
+    p, mu, nu, m = runs[0]
+    for k, p0 in state.params.items():
+        args_k = (p0.detach(), grads[k], opt.mu[k], opt.nu[k], opt.master[k],
+                  c)
+        want = FA.adamw_master_reference(*args_k)
+        bounds = FA.master_update_bounds(*args_k)
+        e, o = leaf_errors((p[k], mu[k], nu[k], m[k]), want, bounds)
+        err, over = max(err, e), over + o
+        del want, bounds
+    del runs[1]
+    st = FA.FusedAdamWState(count=opt.count.clone(), mu=mu, nu=nu, master=m)
+    return err, over, twice, st, p
+
+
+def precision_phase(root, card, torch, csr):
+    """Phase 20: bfloat16 parameter storage with float32 masters at the
+    Amazon-Book width (configs/amazonOneEmbGcn.yaml on the phase-6 graph,
+    host_dense as in phase 6). (b) one train_epoch under bf16_weights
+    BF16_SEL, then one under param_dtype bfloat16 with prefetch_batches 2,
+    each checked (finite losses, every tensor moved, storage dtypes and
+    masters as selected, each stored tensor its master's rounding, K1
+    launches by form, the epoch's mean loss within BF16_LOSS_BAND of phase
+    6's float32 epoch) and timed (epoch, step p50/p90, peak memory);
+    (a) the K1 master form on the 13 tensors against its plain version;
+    (c) a checkpoint of the param_dtype run, its round trip bitwise with
+    the masters, build_recommender from it answering with the in-memory
+    trainer's ids, request p50; (d) one step under the NT-Xent remat form
+    against the softmax form; (e) the epoch at prefetch_batches 0; (f)
+    three steps inside utils.profiling.trace, the trace under
+    chiprun_out/. Returns (the kernel entry of the master form, the plain
+    form's launches in (b))."""
+    from gdmcf_torch.config import load_config
+    from gdmcf_torch.data.native import NativeCSR
+    from gdmcf_torch.models import layers as TL
+    from gdmcf_torch.ops import fused_adamw as FA
+    from gdmcf_torch.ops import spmm as S
+    from gdmcf_torch.serve import build_recommender
+    from gdmcf_torch.train.checkpoint import Checkpointer
+    from gdmcf_torch.train.trainer import Trainer
+    from gdmcf_torch.utils.profiling import TRACE_FILE, trace
+
+    yaml = os.path.join(root, "configs", "amazonOneEmbGcn.yaml")
+    dataset = NativeCSR.from_scipy(csr)
+    steps = N_USER // 400
+    f32_mean = PHASE6["mean_loss"]
+    log(f"float32 epoch (phase 6): {PHASE6['epoch_s']:.2f} s, mean loss "
+        f"{f32_mean:.6e}, step p50 {PHASE6['p50']:.3f} ms, p90 "
+        f"{PHASE6['p90']:.3f} ms, peak {PHASE6['peak_gib']:.2f} GiB [{card}]")
+    launches = {"fused_adamw": 0, "fused_adamw_master": 0}
+    bf16 = torch.bfloat16
+    trainer = state = None
+    for label, kw in (("bf16_weights", {"bf16_weights": BF16_SEL}),
+                      ("param_dtype", {"param_dtype": "bfloat16",
+                                       "prefetch_batches": 2})):
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = load_config(yaml, dict(device="cuda", **kw))
+        trainer = Trainer(cfg, N_USER, N_ITEM)
+        state = trainer.init_state()
+        stored = {k for k, p in state.params.items() if p.dtype == bf16}
+        want = (set(state.params) if cfg.param_dtype == "bfloat16" else
+                {"embedding_item", "in_layers.0.weight", "in_layers.0.bias"})
+        assert stored == want == set(state.opt_state.master), stored
+        assert len(state.params) == 13
+        assert all(m.dtype == torch.float32
+                   for m in state.opt_state.master.values())
+        before = {k: p.detach().clone() for k, p in state.params.items()}
+        FA.reset_launch_counts()
+        S.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, total = trainer.train_epoch(state, dataset,
+                                           np.random.default_rng(0))
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        got = dict(FA.LAUNCHES)
+        assert not any(S.LAUNCHES.values())
+        assert state.step == steps == 272
+        assert got == {"fused_adamw": (13 - len(stored)) * steps,
+                       "fused_adamw_master": len(stored) * steps}, got
+        for k in launches:
+            launches[k] += got[k]
+        mean = total / steps
+        assert np.isfinite(total), f"a {label} loss is not finite"
+        off = mean / f32_mean - 1.0
+        # a bfloat16 tensor moves through its master (lr-sized steps may
+        # stay under the storage's ulp) and is stored as its rounding; while
+        # a bfloat16 sumW is still exactly 1 the blend gives the GCN no
+        # weight and no gradient (in the JAX package too)
+        gcn_off = bool(state.params["sumW"].detach() == 1.0)
+        still = []
+        for k, p in state.params.items():
+            now = state.opt_state.master[k] if k in stored else p.detach()
+            if not bool((now != before[k].to(now.dtype)).any()):
+                still.append(k)
+            if k in stored:
+                assert torch.equal(p.detach(), now.to(bf16)), k
+        allowed = ({k for k in state.params if k.startswith("gcn.")}
+                   if gcn_off and "sumW" in stored else set())
+        assert set(still) <= allowed, f"did not move: {still}"
+        del before
+        p50, p90 = step_times(trainer, state,
+                              train_stream(dataset, cfg.batch_size), torch)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"{label} epoch: {epoch_s:.2f} s ({steps} steps of "
+            f"{cfg.batch_size}, prefetch_batches {cfg.prefetch_batches}), "
+            f"mean loss {mean:.6e} ({off:+.4%} against float32, band "
+            f"{BF16_LOSS_BAND:.0%}); bfloat16 tensors {len(stored)} of 13 "
+            f"with float32 masters, every tensor moved"
+            f"{f' but {still} (sumW stored at 1.0)' if still else ''}; "
+            f"sumW {float(state.params['sumW'].detach()):.6f}; K1 launches {got}; "
+            f"step p50 {p50:.3f} "
+            f"ms, p90 {p90:.3f} ms; peak {peak:.2f} GiB [{card}]")
+        assert abs(off) <= BF16_LOSS_BAND, \
+            f"{label} epoch mean loss off the float32 one by {off:.4%}"
+
+    # (a) the master form against its plain version on the 13 tensors
+    batches = train_stream(dataset, cfg.batch_size, seed=7)
+    x, idx = (torch.from_numpy(a) for a in next(batches))
+    _, grads, _ = trainer.loss_and_grads(state, x, idx)
+    err, over, twice, st, p1 = master_pass(FA, torch, state, grads, cfg.lr)
+    n = sum(p.numel() for p in state.params.values())
+    assert n == FLAGSHIP_PARAMS, n
+    pass_ms = cuda_ms(lambda: FA.fused_adamw_apply(p1, grads, st,
+                                                   lr=cfg.lr),
+                      iters=10, warmup=2)
+    opt = state.opt_state
+    cc = FA.step_scalars(opt.count + 1, cfg.lr)
+    plain_ms = cuda_ms(lambda: [FA.adamw_master_reference(
+        state.params[k].detach(), grads[k], opt.mu[k], opt.nu[k],
+        opt.master[k], cc) for k in state.params], iters=3, warmup=1)
+    mu_b = next(iter(opt.mu.values())).element_size()
+    per_elem = 4 + 4 + 2 + 2 + 4 * mu_b   # master r/w, g, p write, moments
+    bound_bytes = per_elem * n / HBM_BYTES_PER_S * 1e3
+    bound_ops = ADAMW_FLOP_PER_ELEM * n / F32_FLOP_PER_S * 1e3
+    log(f"fused_adamw_master on the 13 flagship tensors: max|kernel-plain| "
+        f"{err:.3e}, {over} over master_update_bounds; two launches bitwise "
+        f"equal {twice}; {pass_ms:.4f} ms per pass, plain {plain_ms:.4f} "
+        f"ms, byte bound {bound_bytes:.4f} ms ({per_elem} B x {n} elements "
+        f"at 3.35 TB/s), operation bound {bound_ops:.4f} ms; no PyTorch call"
+        f" computes this update [{card}]")
+    assert over == 0 and twice, "the K1 master form disagrees"
+    del st, p1, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    entry = {
+        "name": "fused_adamw_master", "route": "triton",
+        "source": "gdmcf_torch/ops/fused_adamw.py",
+        "replaces": tpu_kernel_line(root, "_adamw_kernel", "fused_adamw.py"),
+        "replaces_branch": "the master branch of fused_adamw_apply, "
+                           + jax_source_line(root, "fused_adamw.py",
+                                             "if s in masters:"),
+        "launches": launches["fused_adamw_master"],
+        "max_abs_err": err, "ms": pass_ms, "ms_per_launch": pass_ms / 13,
+        "launches_per_pass": 13, "plain_ms": plain_ms,
+        "bound_ms": max(bound_bytes, bound_ops),
+        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        "library_ms": None,
+        "library": "none: no PyTorch call updates a float32 master and "
+                   "writes its bfloat16 rounding",
+    }
+
+    # (c) a checkpoint of the param_dtype run: the round trip, serving
+    tmp = tempfile.mkdtemp(prefix="gdmcf_bf16_")
+    try:
+        ck_dir = os.path.join(tmp, "ckpt")
+        ck = Checkpointer(ck_dir, max_to_keep=1)
+        t0 = time.perf_counter()
+        ck.save(state)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(ck_dir, f"ckpt_{state.step}.pt"))
+        rec_ckpt = build_recommender(cfg, ck_dir, csr, N_USER, N_ITEM,
+                                     serve_batch=256, k_max=100)
+        template = rec_ckpt.trainer.init_state()
+        t0 = time.perf_counter()
+        restored = Checkpointer(ck_dir).restore(template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        ropt = restored.opt_state
+        pairs = [("count", opt.count, ropt.count),
+                 ("lt.history", state.lt.history, restored.lt.history),
+                 ("generator", state.generator.get_state(),
+                  restored.generator.get_state())]
+        for key, a, b in (("p", state.params, restored.params),
+                          ("mu", opt.mu, ropt.mu), ("nu", opt.nu, ropt.nu),
+                          ("master", opt.master, ropt.master)):
+            assert set(a) == set(b), key
+            pairs += [(f"{key}.{k}", a[k].detach(), b[k].detach()) for k in a]
+        for name, a, b in pairs:
+            assert a.dtype == b.dtype and torch.equal(a, b), \
+                f"round trip differs in {name}"
+        del template, restored
+        rec_live = build_recommender(cfg, None, csr, N_USER, N_ITEM,
+                                     trainer=trainer, serve_batch=256,
+                                     k_max=100)
+        users = np.random.default_rng(5).choice(N_USER, 256, replace=False)
+        want_ids, _ = rec_live.recommend(users, k=100)
+        got_ids, _ = rec_ckpt.recommend(users, k=100)
+        assert np.array_equal(got_ids, want_ids), \
+            "the bfloat16 checkpoint serves other ids than the trainer"
+        check_requests(rec_ckpt, csr, N_ITEM, "param_dtype bfloat16")
+        log(f"param_dtype checkpoint: {len(pairs)} tensors bitwise equal "
+            f"after the round trip (params, moments, masters, Lt ring, "
+            f"generator); save {save_s:.2f} s, {size / 2**30:.2f} GiB, "
+            f"restore {restore_s:.2f} s; build_recommender from it serves "
+            f"the in-memory trainer's ids for 256 users, k 100 [{card}]")
+        request_times(rec_ckpt, users, card, "param_dtype bfloat16 flagship")
+        del rec_ckpt, rec_live
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) one step under the NT-Xent remat form against the softmax form
+    gen = state.generator.get_state()
+    out = {}
+    for form in ("softmax", "remat"):
+        TL._NT_XENT_IMPL = form
+        state.generator.set_state(gen)
+        loss, grads, _ = trainer.loss_and_grads(state, x, idx)
+        out[form] = (loss, grads)
+    TL._NT_XENT_IMPL = "auto"
+    (l_s, g_s), (l_r, g_r) = out["softmax"], out["remat"]
+    same = sum(torch.equal(g_s[k], g_r[k]) for k in g_s)
+    worst = max(float((g_s[k].float() - g_r[k].float()).abs().max()
+                      / g_s[k].float().abs().max().clamp_min(1e-30))
+                for k in g_s)
+    log(f"NT-Xent remat against softmax, one flagship step: loss "
+        f"{l_r.item():.6e} / {l_s.item():.6e}, {same} of {len(g_s)} "
+        f"gradients bitwise equal, the largest difference {worst:.3e} of "
+        f"its tensor's largest gradient")
+    assert abs(l_r.item() / l_s.item() - 1) <= 1e-6
+    assert worst <= float(torch.finfo(bf16).eps)
+    del out, g_s, g_r
+    state.generator.set_state(gen)
+
+    # (e) the same epoch with prefetch_batches 0: epoch time only
+    epochs = {}
+    for depth in (0, 2):
+        trainer.cfg.prefetch_batches = depth
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, total = trainer.train_epoch(state, dataset,
+                                           np.random.default_rng(0))
+        torch.cuda.synchronize()
+        epochs[depth] = time.perf_counter() - t0
+        assert np.isfinite(total)
+    log(f"param_dtype epoch, prefetch_batches 0: {epochs[0]:.2f} s, 2: "
+        f"{epochs[2]:.2f} s [{card}]")
+
+    # (f) three steps inside utils.profiling.trace
+    out_dir = os.path.join(root, "chiprun_out", "bf16_trace")
+    pre = [next(batches) for _ in range(3)]
+    with trace(out_dir) as prof:
+        for xb, ib in pre:
+            trainer.train_step(state, torch.from_numpy(xb),
+                               torch.from_numpy(ib))
+    path = os.path.join(out_dir, TRACE_FILE)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    adamw = sum("_adamw_kernel" in e.get("name", "") for e in kernels)
+    dev_us = sum(getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0.0))
+                 for e in prof.key_averages())
+    log(f"profiling.trace of 3 param_dtype steps: {path} "
+        f"({os.path.getsize(path)} B, {len(events)} events, "
+        f"{len(kernels)} device kernels, {adamw} of them K1's)")
+    log(f"  device time in its key_averages: {dev_us / 1e3:.3f} ms")
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entry, launches["fused_adamw"]
+
+
 MESHES = ((2, 1), (1, 2), (2, 2))
 MESH_STEPS = 3
 MESH_EVAL_USERS = 4_000        # the evaluate_streaming split's users
@@ -3237,6 +3590,10 @@ def main() -> int:
     parser.add_argument("--mesh-phase", action="store_true",
                         help="run only phase 19 (the meshes of ranks "
                              "sharing the card) and report it")
+    parser.add_argument("--precision-phase", action="store_true",
+                        help="run only phases 5, 6 and 20 (the AdamW "
+                             "kernel, the float32 flagship epoch and "
+                             "bfloat16 storage with float32 masters)")
     parser.add_argument("--mesh-diagnostic", action="store_true",
                         help="print what phase 19's parameter limits rest "
                              "on: GEMM rounding by shape, TF32 and planted "
@@ -3270,6 +3627,21 @@ def main() -> int:
         launches = mesh_phase(root, card, torch, power_law_graph(0))
         log(f"mesh launches {json.dumps(launches)}")
         log(f"chip_smoke (phase 19 only): "
+            f"{time.perf_counter() - t_start:.1f} s")
+        log(card)
+        return 0
+    if args.precision_phase:
+        FA.build_kernel()
+        log(card)
+        csr = power_law_graph(0)
+        trainer, _ = flagship_train(args, root, card, torch, csr,
+                                    adamw_phase(FA, torch))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        entry, _ = precision_phase(root, card, torch, csr)
+        log(json.dumps(entry))
+        log(f"chip_smoke (phases 5, 6 and 20 only): "
             f"{time.perf_counter() - t_start:.1f} s")
         log(card)
         return 0
@@ -3427,13 +3799,21 @@ def main() -> int:
         for k in kernels[:2]:
             k["launches_mesh_lightgcn_startup_by_rank"] = [
                 r[k["name"]] for r in mesh["spmm"]]
-        del csr
         log(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+
+        # 20. bfloat16 storage with float32 masters at the Amazon-Book width
+        t0 = time.perf_counter()
+        master_entry, plain_launches = precision_phase(root, card, torch,
+                                                       csr)
+        entry["launches_bf16_epochs"] = plain_launches
+        kernels.append(master_entry)
+        del csr
+        log(f"precision phase: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    # 20. results
-    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of phases 1-19")
+    # 21. results
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of phases 1-20")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

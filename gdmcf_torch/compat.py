@@ -22,7 +22,11 @@ Every ``w`` is transposed: the JAX package stores [d_in, d_out] and
 computes ``x @ w``; ``nn.Linear`` stores [out, in]. A LayerNorm's gain
 ``g`` is ``nn.LayerNorm``'s 1-D ``weight`` (a Linear weight is 2-D, so the
 rank tells the two apart on the way back). Any other leaf keeps its name
-and layout.
+and layout. ``tree_path`` gives a parameter's JAX path (``in_layers/0/w``),
+which ``bf16_weights`` patterns match. bfloat16 leaves cross as bfloat16:
+numpy has no such type of its own, so the JAX side's arrays carry the
+``ml_dtypes`` one (``to_tensor`` reads its bits; ``to_numpy`` writes it
+where ``ml_dtypes`` imports, and widens to float32, exactly, where not).
 
 Reference checkpoints. The reference saves its best model as a whole-module
 pickle (``torch.save(model, 'model.pth')``) and its LightGCN pretrainer's
@@ -64,6 +68,57 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 
 
+def tree_path(name: str, ndim: int) -> str:
+    """The JAX package's path of the port's parameter ``name`` (its
+    ``path_str``): dots become slashes and the leaf takes the JAX name, a
+    2-D ``weight`` ``w``, a 1-D one ``g``, ``bias`` ``b``; e.g.
+    ``in_layers.0.weight`` -> ``in_layers/0/w``."""
+    *path, leaf = name.split(".")
+    if leaf == "weight":
+        leaf = "g" if ndim == 1 else "w"
+    elif leaf == "bias":
+        leaf = "b"
+    return "/".join(path + [leaf])
+
+
+def _bfloat16_numpy():
+    """numpy's bfloat16 type where ``ml_dtypes`` provides one, else None."""
+    try:
+        return np.dtype("bfloat16")
+    except TypeError:
+        try:
+            import ml_dtypes
+        except ImportError:
+            return None
+        return np.dtype(ml_dtypes.bfloat16)
+
+
+def to_tensor(a):
+    """A numpy array (bfloat16 ones included) -> a CPU tensor of its
+    type, a copy."""
+    import torch
+
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.array(a, order="C").view(np.int16)   # a copy, 0-d kept
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def to_numpy(t) -> np.ndarray:
+    """A tensor -> a numpy array of its type (a bfloat16 tensor as
+    ``ml_dtypes`` bfloat16, or float32 without it)."""
+    import torch
+
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        bf16 = _bfloat16_numpy()
+        if bf16 is None:
+            return t.float().numpy()
+        return t.contiguous().view(torch.int16).numpy().view(bf16)
+    return t.numpy()
+
+
 def state_dict_from_jax_params(params: Any) -> Dict[str, np.ndarray]:
     """JAX param tree (numpy leaves) -> flat state_dict of numpy arrays."""
     out: Dict[str, np.ndarray] = {}
@@ -94,20 +149,13 @@ def jax_params_from_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
     """Flat state_dict (tensors or arrays) -> JAX param tree of numpy."""
     tree: Dict[str, Any] = {}
     for name, value in sd.items():
-        value = (value.detach().cpu().numpy() if hasattr(value, "detach")
+        value = (to_numpy(value) if hasattr(value, "detach")
                  else np.asarray(value))
-        *path, leaf = name.split(".")
+        *path, leaf = tree_path(name, value.ndim).split("/")
         node = tree
         for p in path:
             node = node.setdefault(p, {})
-        if leaf == "weight" and value.ndim == 1:
-            node["g"] = value
-        elif leaf == "weight":
-            node["w"] = np.ascontiguousarray(value.T)
-        elif leaf == "bias":
-            node["b"] = value
-        else:
-            node[leaf] = value
+        node[leaf] = np.ascontiguousarray(value.T) if leaf == "w" else value
 
     def listify(node):
         if not isinstance(node, dict):
@@ -158,12 +206,10 @@ def params_from_state_dict(sd: Mapping[str, Any],
     dtypes only. Raises on unknown names, shape mismatches and template
     parameters the state_dict leaves unfilled (a silent partial import is
     worse than an error)."""
-    import torch
-
     groups = {k.split(".")[0] for k in template}
     out: Dict[str, Any] = {}
     for name, value in sd.items():
-        value = (value.detach().cpu().numpy() if hasattr(value, "detach")
+        value = (to_numpy(value) if hasattr(value, "detach")
                  else np.asarray(value))
         target = _resolve(name, groups)
         if target is None:
@@ -175,7 +221,7 @@ def params_from_state_dict(sd: Mapping[str, Any],
         if tuple(want.shape) != tuple(value.shape):
             raise ValueError(f"shape mismatch at {target}: checkpoint "
                              f"{value.shape} vs model {tuple(want.shape)}")
-        out[target] = torch.from_numpy(np.array(value)).to(want.dtype)
+        out[target] = to_tensor(value).to(want.dtype)
     missing = sorted(set(template) - set(out))
     if missing:
         raise ValueError(f"state_dict left model parameters unfilled: "
@@ -197,7 +243,7 @@ def _load_state_dict(path: str) -> Mapping[str, np.ndarray]:
             "state_dict(), ...)) or an .npz and import that") from e
     if hasattr(obj, "state_dict"):
         obj = obj.state_dict()
-    return {k: v.detach().cpu().numpy() for k, v in obj.items()}
+    return {k: to_numpy(v) for k, v in obj.items()}
 
 
 def import_reference_embeddings(src_dir: str, out_dir: Optional[str] = None):
@@ -272,10 +318,12 @@ def main(argv=None):
     params = import_reference_checkpoint(ns.checkpoint, cfg, n_user, n_item,
                                          train_csr=train)
     trainer = Trainer(cfg, n_user, n_item, train_csr=train)
-    state = trainer.init_state()
     with torch.no_grad():
-        for name, p in state.params.items():
+        for name, p in trainer.model.named_parameters():
             p.copy_(params[name])
+    # after the copy: the masters of bfloat16-stored tensors start from
+    # the imported values
+    state = trainer.init_state()
     ckpt = Checkpointer(ns.out)
     ckpt.save(state)
     ckpt.close()

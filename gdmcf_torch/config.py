@@ -136,9 +136,18 @@ class Config:
         if self.param_dtype not in ("float32", "bfloat16"):
             raise ValueError("param_dtype must be float32 or bfloat16")
         if isinstance(self.bf16_weights, str):
+            # a bare string would be iterated per character, matching
+            # nearly every parameter: one pattern
             self.bf16_weights = (self.bf16_weights,)
         else:
             self.bf16_weights = tuple(self.bf16_weights)
+        if any(not isinstance(p, str) or not p for p in self.bf16_weights):
+            raise ValueError("bf16_weights must be non-empty path-substring "
+                             f"strings, got {self.bf16_weights!r}")
+        if self.bf16_weights and self.param_dtype == "bfloat16":
+            raise ValueError(
+                "bf16_weights is redundant with param_dtype=bfloat16 "
+                "(everything is already bf16-stored with full f32 masters)")
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError("compute_dtype must be bfloat16 or float32")
         if self.wire_format not in ("packed", "f32"):
@@ -152,14 +161,13 @@ class Config:
                 "cannot run through it; keep drop_last=true")
         if self.opt_moment_dtype not in ("bfloat16", "float32"):
             raise ValueError("opt_moment_dtype must be bfloat16 or float32")
-        # opt_impl: every value but the JAX package's optimizer chain
-        # selects the single-pass AdamW (train/state.py refuses that one).
-        # The JAX package's mesh refusal stands, so a config valid in one
-        # package is valid in the other (its words, but for the name of
-        # the JAX optimizer library, which the port's sources do not
-        # name); on a mesh "auto" (the JAX package's GSPMD-partitioned
-        # chain) is the same kernel on each rank's own blocks here: AdamW
-        # is elementwise
+        # opt_impl: every value runs the single-pass AdamW here (see
+        # resolved_opt_impl). The JAX package's refusals stand, so a
+        # config valid in one package is valid in the other (its words;
+        # the mesh refusal's explanation speaks of the JAX package's
+        # optimizer chain without naming its library)
+        if self.opt_impl not in ("auto", "inline", "fused", "optax"):
+            raise ValueError("opt_impl must be auto, inline, fused, or optax")
         if self.opt_impl in ("inline", "fused") and not self.fused_opt_eligible:
             raise ValueError(
                 f"opt_impl={self.opt_impl!r} requires param_dtype=float32 "
@@ -174,6 +182,30 @@ class Config:
     def fused_opt_eligible(self) -> bool:
         return (self.param_dtype == "float32"
                 and self.mesh_dp * self.mesh_mp == 1)
+
+    @property
+    def use_fused_opt(self) -> bool:
+        """True where the JAX package runs its single-pass AdamW (resolved
+        'inline' or 'kernel'), False where it runs its optimizer chain
+        ('optax')."""
+        return self.resolved_opt_impl != "optax"
+
+    @property
+    def resolved_opt_impl(self) -> str:
+        """'inline' | 'kernel' | 'optax' after resolving 'auto', as the JAX
+        package resolves it (a bfloat16 param_dtype or a mesh resolves
+        'auto' to its chain). The port runs the same single-pass update
+        for all three: K1, with its master form for bfloat16-stored
+        tensors (``ops/fused_adamw.py``); AdamW is elementwise, and the
+        JAX package's tests pin its chain, with or without f32 masters,
+        to its single pass."""
+        if self.opt_impl == "fused":
+            return "kernel"
+        if self.opt_impl == "inline":
+            return "inline"
+        if self.opt_impl == "auto" and self.fused_opt_eligible:
+            return "inline"
+        return "optax"
 
     def out_dims(self, n_item: int) -> List[int]:
         """Reference main.py:198-206: out = dims + [n_item], in = reversed."""
@@ -242,6 +274,9 @@ def parse_args(argv: Optional[List[str]] = None) -> Config:
         if f.type in ("bool", bool):
             parser.add_argument(flag, nargs="?", const=True, default=None,
                                 type=str)
+        elif f.name == "bf16_weights":
+            # one or more patterns: --bf16_weights in_layers/ embedding_item
+            parser.add_argument(flag, nargs="+", default=None, type=str)
         elif f.name in ("dims", "topN"):
             parser.add_argument(flag, default=None, type=str,
                                 help="YAML list, e.g. [1000]")

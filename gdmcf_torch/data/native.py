@@ -2,7 +2,8 @@
 (numpy).
 
 Counterpart of the JAX package's ``data/native.py:NativeCSR``:
-``from_scipy``, ``gather``, ``gather_packed`` and ``sample_bpr``. The JAX
+``from_edge_list``, ``from_scipy``, ``gather``, ``gather_packed`` and
+``sample_bpr``. The JAX
 package runs these in a C++ engine (``data/_native/loader.cpp``); here they
 are vectorized numpy with its semantics, and ``sample_bpr`` draws the C++
 engine's triples bit for bit.
@@ -42,6 +43,20 @@ class NativeCSR:
         self.indices = np.ascontiguousarray(indices, dtype=np.int32)
         self.n_user = n_user
         self.n_item = n_item
+
+    @classmethod
+    def from_edge_list(cls, edges: np.ndarray, n_user: int,
+                       n_item: int) -> "NativeCSR":
+        """A [nnz, 2] (uid, iid) edge list as CSR: rows by user, each row's
+        items ascending, a repeated pair kept as often as it is listed (the
+        C++ engine's counting sort)."""
+        edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+        order = np.lexsort((edges[:, 1], edges[:, 0]))
+        srt = edges[order]
+        indptr = np.zeros(n_user + 1, dtype=np.int64)
+        np.add.at(indptr[1:], srt[:, 0], 1)
+        return cls(np.cumsum(indptr), srt[:, 1].astype(np.int32), n_user,
+                   n_item)
 
     @classmethod
     def from_scipy(cls, csr, strict: bool = True) -> "NativeCSR":

@@ -42,7 +42,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from gdmcf_torch.models.gcn import LayerGCN, layer_gcn_user_rows
-from gdmcf_torch.models.layers import (dropout, l2_normalize, linear_init,
+from gdmcf_torch.models.layers import (LayerNorm, Linear, dropout,
+                                       l2_normalize, linear_init,
                                        mlp_init, mlp_out, nt_xent_loss,
                                        timestep_embedding,
                                        torch_linear_default, xavier_uniform)
@@ -454,7 +455,7 @@ class EncoderLayer(nn.Module):
         super().__init__()
         self.nhead = nhead
         self.dropout_rate = dropout_rate
-        self.qkv = nn.Linear(d_model, 3 * d_model, device=device)
+        self.qkv = Linear(d_model, 3 * d_model, device=device)
         with torch.no_grad():
             self.qkv.weight.copy_(xavier_uniform((d_model, 3 * d_model),
                                                  generator, device).T)
@@ -464,8 +465,8 @@ class EncoderLayer(nn.Module):
             self.out.bias.zero_()
         self.ff1 = torch_linear_default(d_model, d_ff, generator, device)
         self.ff2 = torch_linear_default(d_ff, d_model, generator, device)
-        self.ln1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
-        self.ln2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
+        self.ln1 = LayerNorm(d_model, eps=1e-5, device=device)
+        self.ln2 = LayerNorm(d_model, eps=1e-5, device=device)
 
     def forward(self, x, generator: Optional[torch.Generator] = None,
                 dropout_u: Sequence[torch.Tensor] = ()):

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gdmcf_torch.models.layers import gcn_conv_init
+from gdmcf_torch.models.layers import gcn_conv_init, promote
 
 
 def gcn_conv_bipartite(conv: nn.Linear, h_users: torch.Tensor,
@@ -35,8 +35,10 @@ def gcn_conv_bipartite(conv: nn.Linear, h_users: torch.Tensor,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One GCNConv over the bipartite batch graph; returns (users, items).
     h_users [B, D], h_items [N, D], g [B, N] binary."""
-    xu = F.linear(h_users, conv.weight)
-    xi = F.linear(h_items, conv.weight)
+    # a bfloat16 weight (param_dtype) meets float32 rows: promoted, as jnp
+    # does; everything after is float32
+    xu = F.linear(*promote(h_users, conv.weight))
+    xi = F.linear(*promote(h_items, conv.weight))
     deg_i = 1.0 + g.sum(dim=0)
     if not symmetric:
         item_out = (xi / deg_i[:, None]

@@ -1,11 +1,21 @@
 """Layer primitives with the reference's initialization.
 
-Port of the JAX package's ``models/layers.py``. Linear layers are ``nn.Linear``
-(weight stored [out, in]; the JAX package stores [in, out]) initialized as
+Port of the JAX package's ``models/layers.py``. Linear layers are ``Linear``,
+an ``nn.Linear`` (weight stored [out, in]; the JAX package stores [in, out])
+whose product promotes mixed types (below), initialized as
 the reference does: Xavier-normal weight, N(0, 0.001) bias. Embedding tables
 are Xavier-uniform; a GCN conv has a Glorot-uniform weight and a zero bias;
 the transformer's encoder layers keep torch's defaults.
 Every draw takes an explicit ``torch.Generator``.
+
+Mixed types: a tensor may be stored in bfloat16 (``param_dtype``,
+``bf16_weights``). jnp promotes the operands of a product, bfloat16 with
+float32 to float32, and keeps bfloat16 where both are; ``F.linear`` and
+``@`` refuse mixed types. So every product that can meet a bfloat16 tensor
+and a float32 one goes through ``promote`` (``Linear``, ``LayerNorm``, the
+cosine head, the GCN's convs), and a float32 pair takes the unchanged
+float32 op. The frozen LightGCN tables are cast together, and every activation
+after a promoted product is float32, so the other products never mix.
 """
 
 from __future__ import annotations
@@ -14,13 +24,46 @@ import math
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+def promote(a: torch.Tensor, b: torch.Tensor):
+    """a and b in their common type (jnp's promotion: bfloat16 with float32
+    is float32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose product promotes its operands. A float32 input
+    and weight take ``nn.Linear``'s own op; any other pair computes jnp's
+    ``x @ w + b``: the product in the common type, then the bias added
+    (which promotes again)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype == self.bias.dtype == torch.float32:
+            return super().forward(x)
+        x, w = promote(x, self.weight)
+        return F.linear(x, w) + self.bias
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` that takes a gain and bias of another type than its
+    input: the normalized input times the gain plus the bias, promoted (the
+    JAX package's ``(x - mean) * rsqrt(var + eps) * g + b``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype == self.bias.dtype:
+            return super().forward(x)
+        return (F.layer_norm(x, self.normalized_shape, eps=self.eps)
+                * self.weight + self.bias)
 
 
 def linear_init(d_in: int, d_out: int, generator: torch.Generator,
                 device=None) -> nn.Linear:
-    """nn.Linear with Xavier-normal weight and N(0, 0.001) bias."""
-    layer = nn.Linear(d_in, d_out, device=device)
+    """Linear with Xavier-normal weight and N(0, 0.001) bias."""
+    layer = Linear(d_in, d_out, device=device)
     std = math.sqrt(2.0 / (d_in + d_out))
     with torch.no_grad():
         nn.init.normal_(layer.weight, 0.0, std, generator=generator)
@@ -30,10 +73,10 @@ def linear_init(d_in: int, d_out: int, generator: torch.Generator,
 
 def torch_linear_default(d_in: int, d_out: int, generator: torch.Generator,
                          device=None) -> nn.Linear:
-    """nn.Linear with torch's own default init drawn from ``generator``:
+    """Linear with torch's own default init drawn from ``generator``:
     U(+-1/sqrt(fan_in)) for the weight and for the bias (the transformer's
     encoder layers keep it; the reference re-inits only its MLPs)."""
-    layer = nn.Linear(d_in, d_out, device=device)
+    layer = Linear(d_in, d_out, device=device)
     bound = 1.0 / math.sqrt(d_in)
     with torch.no_grad():
         layer.weight.uniform_(-bound, bound, generator=generator)
@@ -53,7 +96,7 @@ def gcn_conv_init(d_in: int, d_out: int, generator: torch.Generator,
                   device=None) -> nn.Linear:
     """GCNConv's default init (torch_geometric): Glorot-uniform weight,
     zero bias. Weight stored [out, in] like every ``nn.Linear``."""
-    layer = nn.Linear(d_in, d_out, device=device)
+    layer = Linear(d_in, d_out, device=device)
     with torch.no_grad():
         layer.weight.copy_(xavier_uniform((d_in, d_out), generator,
                                           device).T)
@@ -63,7 +106,7 @@ def gcn_conv_init(d_in: int, d_out: int, generator: torch.Generator,
 
 def mlp_init(dims: Sequence[int], generator: torch.Generator,
              device=None) -> nn.ModuleList:
-    """A stack of Linear layers over consecutive dim pairs."""
+    """A stack of ``Linear`` layers over consecutive dim pairs."""
     return nn.ModuleList(linear_init(a, b, generator, device)
                          for a, b in zip(dims[:-1], dims[1:]))
 
@@ -135,11 +178,13 @@ def cosine_scores(user_vecs: torch.Tensor, item_table: torch.Tensor,
     denom = u_norm * i_norm[None, :]
     if eps:
         denom = denom.clamp_min(eps)
-    return (user_vecs @ item_table.T) / denom
+    u, items = promote(user_vecs, item_table)
+    return (u @ items.T) / denom
 
 
 # NT-Xent inner form: "softmax" materializes the normalized [B, B] matrix,
-# "lse" needs only the row logsumexp and the diagonal; the same math.
+# "lse" needs only the row logsumexp and the diagonal, "remat" is the
+# softmax form recomputed in the backward instead of stored; the same math.
 # "auto" takes "lse" from a batch of _NT_XENT_LSE_MIN_BATCH rows on, as the
 # JAX package does. Tests set the form directly.
 _NT_XENT_IMPL = "auto"
@@ -173,6 +218,13 @@ def nt_xent_loss(z1: torch.Tensor, z2: torch.Tensor, temperature: float = 0.1,
     reference guards only the numerator, so a positive that saturates the
     softmax drives the off-diagonal mass to 0 and the loss to inf."""
     impl = _resolve_ntxent_impl(z1.shape[0])
+    if impl == "remat":
+        # the [B, B] softmax recomputed in the backward instead of stored
+        # (the JAX package's jax.checkpoint of the core)
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(nt_xent_softmax_core, z1, z2, temperature, eps,
+                          use_reentrant=False)
     if impl == "lse":
         # softmax rows sum to 1, so the off-diagonal mass is 1 - diag
         sim = (z1 @ z2.T) / temperature
@@ -181,7 +233,5 @@ def nt_xent_loss(z1: torch.Tensor, z2: torch.Tensor, temperature: float = 0.1,
         neg_sum = 1.0 - diag
         return -torch.log((diag + eps) / (neg_sum + eps)).mean()
     if impl != "softmax":
-        raise NotImplementedError(
-            f"NT-Xent form {impl!r} is not ported (the 'remat' A/B form "
-            "waits: ROADMAP.md §A item 2)")
+        raise ValueError(f"unknown NT-Xent form {impl!r}")
     return nt_xent_softmax_core(z1, z2, temperature=temperature, eps=eps)

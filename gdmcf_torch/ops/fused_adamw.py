@@ -12,6 +12,19 @@ once and writes p, mu and nu back in place,
 with all arithmetic in float32 and the moments rounded to their storage
 type (round to nearest even).
 
+The master form (``adamw_master_update_``) is the counterpart of the JAX
+package's master branch of ``fused_adamw_apply``: for a tensor stored in
+bfloat16 (``param_dtype=bfloat16`` or ``bf16_weights``) the update runs on
+its float32 master ``w`` and writes the master and the storage,
+
+    w'  = w - lr ((mu' / c1) / (sqrt(nu' / c2) + eps) + wd w)
+    p'  = bfloat16(w')          (round to nearest even)
+
+reading w (4 B), g (bfloat16, 2 B), mu, nu and writing w (4 B), p (2 B),
+mu, nu: with bfloat16 moments 20 bytes per element too. It is a
+``tl.constexpr`` branch of the same kernel, counted as
+``fused_adamw_master``.
+
 What bounds it on an H100: bytes. There is no reuse and no product; with
 bfloat16 moments it moves 20 bytes per element (p, g read at 4, mu, nu read
 at 2, p written at 4, mu, nu written at 2) for 16 float32 operations,
@@ -42,7 +55,7 @@ from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Dict, Mapping, NamedTuple, Tuple
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -53,7 +66,7 @@ NUM_WARPS = 8       # 8 elements a thread
 
 # launches since the last reset_launch_counts(); the wrapper adds one
 # exactly where it launches the kernel
-LAUNCHES = {"fused_adamw": 0}
+LAUNCHES = {"fused_adamw": 0, "fused_adamw_master": 0}
 
 _jit = None
 tl = None   # triton.language, bound when the kernel is first built
@@ -66,25 +79,31 @@ def reset_launch_counts() -> None:
 
 class FusedAdamWState(NamedTuple):
     """``count``: completed steps (0-d int32 on the device); ``mu``/``nu``:
-    the moments of each trainable tensor, by parameter name."""
+    the moments of each trainable tensor, by parameter name; ``master``:
+    the float32 master of each bfloat16-stored trainable tensor (None or
+    empty when every tensor is float32)."""
 
     count: torch.Tensor
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
+    master: Optional[Dict[str, torch.Tensor]] = None
 
 
 def fused_adamw_init(params: Mapping[str, torch.Tensor],
                      moment_dtype: torch.dtype = torch.bfloat16
                      ) -> FusedAdamWState:
     """Zero moments in ``moment_dtype`` for every tensor of ``params``
-    (the trainable ones: buffers such as ``frozen_*`` get none)."""
+    (the trainable ones: buffers such as ``frozen_*`` get none), and a
+    float32 master, the stored value widened, for each bfloat16 one."""
     dev = next(iter(params.values())).device
     return FusedAdamWState(
         count=torch.zeros((), dtype=torch.int32, device=dev),
         mu={k: torch.zeros_like(p, dtype=moment_dtype)
             for k, p in params.items()},
         nu={k: torch.zeros_like(p, dtype=moment_dtype)
-            for k, p in params.items()})
+            for k, p in params.items()},
+        master={k: p.detach().float().clone()
+                for k, p in params.items() if p.dtype == torch.bfloat16})
 
 
 def step_scalars(count: torch.Tensor, lr: float, b1: float = 0.9,
@@ -111,6 +130,19 @@ def adamw_reference(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
     p32 = p.float()
     new_p = (p32 - lr * (upd + wd * p32)).to(p.dtype)
     return new_p, mu32.to(mu.dtype), nu32.to(nu.dtype)
+
+
+def adamw_master_reference(p: torch.Tensor, g: torch.Tensor,
+                           mu: torch.Tensor, nu: torch.Tensor,
+                           master: torch.Tensor, c: torch.Tensor, *,
+                           b1: float = 0.9, b2: float = 0.999,
+                           eps: float = 1e-8, wd: float = 0.0):
+    """Plain version of the master form (the JAX package's master branch:
+    ``_adamw_leaf_inline`` on the master, then the storage cast): returns
+    new (p, mu, nu, master), inputs untouched."""
+    new_m, new_mu, new_nu = adamw_reference(master, g, mu, nu, c, b1=b1,
+                                            b2=b2, eps=eps, wd=wd)
+    return new_m.to(p.dtype), new_mu, new_nu, new_m
 
 
 def update_bounds(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
@@ -143,32 +175,57 @@ def update_bounds(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
     return b_p, b_mu, b_nu
 
 
-def _adamw_kernel(p_ptr, g_ptr, mu_ptr, nu_ptr, c_ptr, n, b1, omb1, b2,
-                  omb2, eps, wd, BLOCK: "tl.constexpr"):
-    # one program per BLOCK elements of one flat tensor, updated in place
+def master_update_bounds(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+                         nu: torch.Tensor, master: torch.Tensor,
+                         c: torch.Tensor, **kw):
+    """Bounds (p, mu, nu, master) on |master form - adamw_master_reference|
+    after one step from the same inputs: the master, mu and nu as in
+    ``update_bounds`` on the master; the stored p within the master's bound
+    plus one ulp of its storage type (two roundings of values that far
+    apart may land on neighbouring storage values)."""
+    b_m, b_mu, b_nu = update_bounds(master, g, mu, nu, c, **kw)
+    new_m = adamw_reference(master, g, mu, nu, c, **kw)[0]
+    b_p = b_m + torch.finfo(p.dtype).eps * (new_m.abs() + b_m)
+    return b_p, b_mu, b_nu, b_m
+
+
+def _adamw_kernel(p_ptr, g_ptr, mu_ptr, nu_ptr, m_ptr, c_ptr, n, b1, omb1,
+                  b2, omb2, eps, wd, BLOCK: "tl.constexpr",
+                  MASTER: "tl.constexpr"):
+    # one program per BLOCK elements of one flat tensor, updated in place;
+    # MASTER: the math runs on the float32 master at m_ptr and p (bfloat16)
+    # receives its rounding (without it m_ptr is never read)
     pid = tl.program_id(0)
     offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
     mask = offs < n
     lr = tl.load(c_ptr)
     c1 = tl.load(c_ptr + 1)
     c2 = tl.load(c_ptr + 2)
-    p = tl.load(p_ptr + offs, mask=mask, other=0.0)
-    g = tl.load(g_ptr + offs, mask=mask, other=0.0)
+    if MASTER:
+        w = tl.load(m_ptr + offs, mask=mask, other=0.0)
+    else:
+        w = tl.load(p_ptr + offs, mask=mask, other=0.0)
+    g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
     mu = tl.load(mu_ptr + offs, mask=mask, other=0.0).to(tl.float32)
     nu = tl.load(nu_ptr + offs, mask=mask, other=0.0).to(tl.float32)
     mu = b1 * mu + omb1 * g
     nu = b2 * nu + omb2 * g * g
     denom = tl.sqrt_rn(tl.div_rn(nu, c2)) + eps
     upd = tl.div_rn(tl.div_rn(mu, c1), denom)
-    p = p - lr * (upd + wd * p)
-    tl.store(p_ptr + offs, p, mask=mask)
+    w = w - lr * (upd + wd * w)
+    if MASTER:
+        tl.store(m_ptr + offs, w, mask=mask)
+        tl.store(p_ptr + offs, w.to(p_ptr.dtype.element_ty), mask=mask)
+    else:
+        tl.store(p_ptr + offs, w, mask=mask)
     tl.store(mu_ptr + offs, mu.to(mu_ptr.dtype.element_ty), mask=mask)
     tl.store(nu_ptr + offs, nu.to(nu_ptr.dtype.element_ty), mask=mask)
 
 
 def build_kernel():
     """Import Triton (cache in ``gdmcf_torch/_build/triton``) and JIT-wrap
-    the kernel; it compiles at its first launch for each moment dtype."""
+    the kernel; it compiles at its first launch for each form and moment
+    dtype."""
     global _jit, tl
     if _jit is None:
         os.environ["TRITON_CACHE_DIR"] = str(BUILD_DIR / "triton")
@@ -180,18 +237,27 @@ def build_kernel():
     return _jit
 
 
-def _check(p, g, mu, nu, c) -> None:
-    for name, t in (("p", p), ("g", g), ("mu", mu), ("nu", nu), ("c", c)):
+def _check(p, g, mu, nu, c, master=None) -> None:
+    extra = () if master is None else (("master", master),)
+    for name, t in (("p", p), ("g", g), ("mu", mu), ("nu", nu), ("c", c),
+                    *extra):
         if not t.is_cuda or t.device != p.device:
             raise ValueError(f"{name} must be on {p.device}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in (("g", g), ("mu", mu), ("nu", nu)):
+    for name, t in (("g", g), ("mu", mu), ("nu", nu), *extra):
         if t.shape != p.shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != p shape "
                              f"{tuple(p.shape)}")
-    if p.dtype != torch.float32 or g.dtype != torch.float32:
-        raise ValueError(f"p and g must be float32, got {p.dtype}, {g.dtype}")
+    if master is None:
+        if p.dtype != torch.float32 or g.dtype != torch.float32:
+            raise ValueError(f"p and g must be float32, got {p.dtype}, "
+                             f"{g.dtype} (a bfloat16 p takes the master form)")
+    elif (p.dtype != torch.bfloat16 or g.dtype != torch.bfloat16
+          or master.dtype != torch.float32):
+        raise ValueError(f"the master form takes p and g bfloat16 and the "
+                         f"master float32, got {p.dtype}, {g.dtype}, "
+                         f"{master.dtype}")
     if mu.dtype != nu.dtype or mu.dtype not in (torch.float32,
                                                 torch.bfloat16):
         raise ValueError(f"mu and nu must be both float32 or both bfloat16, "
@@ -200,18 +266,32 @@ def _check(p, g, mu, nu, c) -> None:
         raise ValueError("c must be float32 [lr, c1, c2]")
 
 
+def _no_dtensor(**tensors) -> None:
+    for name, t in tensors.items():
+        if isinstance(t, DTensor):
+            raise TypeError(f"the AdamW update takes local tensors; {name} "
+                            "is a DTensor: pass its to_local()")
+
+
+def _launch(p, g, mu, nu, master, c, b1, b2, eps, wd) -> None:
+    kernel = build_kernel()
+    n = p.numel()
+    with torch.cuda.device(p.device):
+        kernel[(-(-n // BLOCK),)](
+            p.detach(), g, mu, nu, p.detach() if master is None else master,
+            c, n, b1, 1.0 - b1, b2, 1.0 - b2, eps, wd, BLOCK=BLOCK,
+            MASTER=master is not None, num_warps=NUM_WARPS)
+
+
 def adamw_update_(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
                   nu: torch.Tensor, c: torch.Tensor, *, b1: float = 0.9,
                   b2: float = 0.999, eps: float = 1e-8,
                   wd: float = 0.0) -> None:
-    """One AdamW step on one tensor, in place on p, mu and nu. CUDA
-    tensors launch the kernel (or raise); CPU tensors take the plain
+    """One AdamW step on one float32 tensor, in place on p, mu and nu.
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version. Each tensor is a rank's own (local) tensor: a DTensor
     raises."""
-    for name, t in (("p", p), ("g", g), ("mu", mu), ("nu", nu)):
-        if isinstance(t, DTensor):
-            raise TypeError(f"adamw_update_ takes local tensors; {name} is a "
-                            "DTensor: pass its to_local()")
+    _no_dtensor(p=p, g=g, mu=mu, nu=nu)
     if not p.is_cuda:
         new_p, new_mu, new_nu = adamw_reference(p, g, mu, nu, c, b1=b1,
                                                 b2=b2, eps=eps, wd=wd)
@@ -221,13 +301,32 @@ def adamw_update_(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
         nu.copy_(new_nu)
         return
     _check(p, g, mu, nu, c)
-    kernel = build_kernel()
-    n = p.numel()
-    with torch.cuda.device(p.device):
-        kernel[(-(-n // BLOCK),)](
-            p.detach(), g, mu, nu, c, n, b1, 1.0 - b1, b2, 1.0 - b2, eps,
-            wd, BLOCK=BLOCK, num_warps=NUM_WARPS)
+    _launch(p, g, mu, nu, None, c, b1, b2, eps, wd)
     LAUNCHES["fused_adamw"] += 1
+
+
+def adamw_master_update_(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+                         nu: torch.Tensor, master: torch.Tensor,
+                         c: torch.Tensor, *, b1: float = 0.9,
+                         b2: float = 0.999, eps: float = 1e-8,
+                         wd: float = 0.0) -> None:
+    """The master form: one AdamW step of a bfloat16-stored tensor p
+    (gradient g bfloat16) on its float32 ``master``, in place on the
+    master, p, mu and nu. CUDA tensors launch the kernel's master form (or
+    raise); CPU tensors take ``adamw_master_reference``."""
+    _no_dtensor(p=p, g=g, mu=mu, nu=nu, master=master)
+    if not p.is_cuda:
+        new_p, new_mu, new_nu, new_m = adamw_master_reference(
+            p, g, mu, nu, master, c, b1=b1, b2=b2, eps=eps, wd=wd)
+        with torch.no_grad():
+            p.copy_(new_p)
+        mu.copy_(new_mu)
+        nu.copy_(new_nu)
+        master.copy_(new_m)
+        return
+    _check(p, g, mu, nu, c, master)
+    _launch(p, g, mu, nu, master, c, b1, b2, eps, wd)
+    LAUNCHES["fused_adamw_master"] += 1
 
 
 def fused_adamw_apply(params: Mapping[str, torch.Tensor],
@@ -238,10 +337,17 @@ def fused_adamw_apply(params: Mapping[str, torch.Tensor],
                       ) -> FusedAdamWState:
     """One AdamW step over every tensor of ``params``, in place (the JAX
     package returns new arrays; updating in place saves a copy of the
-    model). Returns the state with the step counted."""
+    model): the master form for a tensor with a master, the plain form
+    otherwise. Returns the state with the step counted."""
     count = state.count + 1
     c = step_scalars(count, lr, b1, b2)
+    masters = state.master or {}
+    kw = dict(b1=b1, b2=b2, eps=eps, wd=weight_decay)
     for name, p in params.items():
-        adamw_update_(p, grads[name], state.mu[name], state.nu[name], c,
-                      b1=b1, b2=b2, eps=eps, wd=weight_decay)
+        if name in masters:
+            adamw_master_update_(p, grads[name], state.mu[name],
+                                 state.nu[name], masters[name], c, **kw)
+        else:
+            adamw_update_(p, grads[name], state.mu[name], state.nu[name], c,
+                          **kw)
     return state._replace(count=count)

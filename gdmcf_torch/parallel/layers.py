@@ -25,7 +25,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from gdmcf_torch.models.layers import cosine_scores
+from gdmcf_torch.models.layers import cosine_scores, promote
 from gdmcf_torch.parallel.collectives import copy_to, gather_from, sum_over
 from gdmcf_torch.parallel.sharding import shard_of
 
@@ -49,7 +49,7 @@ def linear_parts(layer: torch.nn.Linear,
         b = max(min(hi, off + p.shape[-1]), a)
         piece = copy_to(p, shard.group)[..., a - off:b - off]
         c = min(max(a - lo, 0), width)
-        term = F.linear(piece, layer.weight[:, c:c + (b - a)])
+        term = F.linear(*promote(piece, layer.weight[:, c:c + (b - a)]))
         acc = term if acc is None else acc + term
         off += p.shape[-1]
     return sum_over(acc, shard.group) + layer.bias
@@ -63,7 +63,10 @@ def linear_out(layer: torch.nn.Linear, x: torch.Tensor) -> torch.Tensor:
         raise ValueError("linear_out takes a weight sharded by output")
     rows = layer.weight.shape[0]
     bias = layer.bias[shard.index * rows:(shard.index + 1) * rows]
-    y = F.linear(copy_to(x, shard.group), layer.weight, bias)
+    x, w = promote(copy_to(x, shard.group), layer.weight)
+    # a float32 pair keeps the fused bias, as ``Linear`` does
+    y = (F.linear(x, w, bias) if x.dtype == bias.dtype == torch.float32
+         else F.linear(x, w) + bias)
     return gather_from(y, shard.group, -1)
 
 

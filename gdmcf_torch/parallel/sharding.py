@@ -14,7 +14,9 @@ Strategy (the JAX package's):
     over mp: the item and user tables and the frozen LightGCN tables by
     rows, the towers' first weights by their catalog-wide input, the
     DNNCat2 fuse by its catalog-wide output; everything else replicated;
-    the optimizer moments follow their parameters;
+    the optimizer moments and the float32 masters of bfloat16-stored
+    tensors follow their parameters (made from each rank's block, so K1
+    updates the rank's own blocks);
   * a dimension the mp size does not divide stays replicated
     (``compatible_spec``).
 

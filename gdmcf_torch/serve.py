@@ -64,7 +64,9 @@ class Recommender:
                         device=None) -> "Recommender":
         """A new Trainer whose parameters are those of the newest checkpoint
         in ``ckpt_dir`` (``train/checkpoint.py``); the optimizer state is
-        neither built nor read."""
+        neither built nor read. The Trainer stores its parameters as
+        ``cfg`` says (``param_dtype``, ``bf16_weights``), and the
+        checkpoint's must be stored alike."""
         # membership semantics: the history is which items to exclude
         history = NativeCSR.from_scipy(train_csr, strict=False)
         trainer = Trainer(cfg, history.n_user, history.n_item,

@@ -2,9 +2,10 @@
 
 Port of the JAX package's ``train/checkpoint.py`` on ``torch.save`` and
 ``torch.load(weights_only=True)``. A checkpoint holds the complete
-``TrainState``: parameters, both AdamW moments and their step count, the Lt
-ring, the step, and the step generator's ``get_state()``, so a restored run
-continues bit for bit.
+``TrainState``: parameters, both AdamW moments and their step count, the
+float32 masters of the bfloat16-stored tensors (an empty ``master`` group
+in a float32 run), the Lt ring, the step, and the step generator's
+``get_state()``, so a restored run continues bit for bit.
 
 Layout: one file per step, ``<directory>/ckpt_<step>.pt``, written under a
 temporary name and committed by ``os.replace``: a crash mid-write never
@@ -61,14 +62,21 @@ def _payload(state: TrainState, writer: bool = True) -> Optional[Dict]:
     opt = state.opt_state
     shards = {k: shard_of(p) for k, p in state.params.items()}
     tensors = {key: {k: whole(m, shards[k]) for k, m in part.items()}
-               for key, part in (("params", state.params), ("mu", opt.mu),
-                                 ("nu", opt.nu))}
+               for key, part in _groups(state)}
     if not writer:
         return None
     return dict(tensors, step=int(state.step), count=_host(opt.count),
                 lt_history=_host(state.lt.history),
                 lt_count=_host(state.lt.count),
                 generator=state.generator.get_state())
+
+
+def _groups(state: TrainState):
+    """(key, {name: tensor}) of every per-parameter group of the state; a
+    master is sharded as its parameter is."""
+    opt = state.opt_state
+    return (("params", state.params), ("mu", opt.mu), ("nu", opt.nu),
+            ("master", opt.master or {}))
 
 
 def _copy_into(dst: torch.Tensor, src: torch.Tensor, name: str) -> None:
@@ -191,14 +199,17 @@ class Checkpointer:
         data = torch.load(self._path(step), map_location="cpu",
                           weights_only=True, mmap=True)
         opt = template.opt_state
-        for key, live in (("params", template.params), ("mu", opt.mu),
-                          ("nu", opt.nu)):
-            if set(data[key]) != set(live):
+        for key, live in _groups(template):
+            # a checkpoint written before masters existed has no group:
+            # it restores into a float32 run
+            saved = data.get(key, {})
+            if set(saved) != set(live):
                 raise ValueError(
-                    f"checkpoint {key} names {sorted(data[key])} differ from "
-                    f"the template's {sorted(live)}")
+                    f"checkpoint {key} names {sorted(saved)} differ from "
+                    f"the template's {sorted(live)}: it was saved under "
+                    "another config (param_dtype, bf16_weights)")
             for name, t in live.items():
-                src = data[key][name]
+                src = saved[name]
                 shard = shard_of(template.params[name])
                 if shard is not None:   # a mesh rank keeps its block
                     if src.shape[shard.dim] != t.shape[shard.dim] * \

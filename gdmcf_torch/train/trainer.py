@@ -22,6 +22,10 @@ constant one.
 ``compute_dtype`` maps to the matmul precision on the GPU, for training and
 eval: ``bfloat16`` (the default) is the JAX package's "default" precision,
 which on a GPU is TF32, so TF32 is on; ``float32`` turns TF32 off.
+``param_dtype`` and ``bf16_weights`` set the parameters' storage: the
+Trainer stores the selected tensors in bfloat16 when it builds the model
+(``train.state.cast_params_``), each gets a float32 master in the AdamW
+state, and K1's master form updates it (``ops/fused_adamw.py``).
 
 On a (dp, mp) mesh (``mesh_dp * mesh_mp > 1``) the Trainer is one rank of a
 world of dp * mp processes started by ``parallel.multihost.initialize``; a
@@ -51,6 +55,7 @@ import torch
 
 from gdmcf_torch import resolve_device
 from gdmcf_torch.data.loader import DiffusionDataset, epoch_batches, epoch_stop
+from gdmcf_torch.data.prefetch import prefetched
 from gdmcf_torch.diffusion.engine import Diffusion, LtState, TrainDraws
 from gdmcf_torch.models.registry import build_model
 from gdmcf_torch.ops.bitpack import is_binary, pack_rows, unpack_rows
@@ -61,7 +66,8 @@ from gdmcf_torch.ops.topk import chunked_topk
 from gdmcf_torch.parallel.rows import RowBlock
 from gdmcf_torch.parallel.mesh import axis_group, axis_index, axis_size
 from gdmcf_torch.parallel.multihost import is_main_process, process_count
-from gdmcf_torch.train.state import TrainState, create_train_state
+from gdmcf_torch.train.state import (TrainState, cast_params_,
+                                     create_train_state)
 
 
 @contextlib.contextmanager
@@ -142,6 +148,8 @@ class Trainer:
         self.model = build_model(cfg, n_user, n_item, train_csr=train_csr,
                                  generator=self.generator,
                                  device=self.device)
+        # param_dtype / bf16_weights storage, before any step or request
+        cast_params_(cfg, self.model)
         if self.mesh is not None:
             from gdmcf_torch.parallel.sharding import shard_params
 
@@ -283,8 +291,9 @@ class Trainer:
                        index: torch.Tensor,
                        draws: Optional[TrainDraws] = None):
         """Forward and backward of one batch: (mean loss, grads by
-        parameter name, the new LtState). Changes nothing in ``state``
-        except its generator's position."""
+        parameter name, each in its parameter's type as under ``jax.grad``,
+        the new LtState). Changes nothing in ``state`` except its
+        generator's position."""
         x = self._unpack(x.to(self.device))
         if self.cfg.OneHotMatrix == 1 and x.shape[-1] == self.n_item:
             # a caller may pass the block already ([B + n, B + n])
@@ -325,7 +334,9 @@ class Trainer:
 
     def apply_grads(self, state: TrainState, grads: Dict[str, torch.Tensor],
                     new_lt: LtState) -> TrainState:
-        """The optional global-norm clip, then AdamW in place."""
+        """The optional global-norm clip (float32 squares; each gradient
+        keeps its parameter's type), then AdamW in place: K1's master form
+        for a bfloat16-stored tensor."""
         if self.cfg.grad_clip_norm > 0.0:
             squares = [torch.sum(g.float() ** 2) for g in grads.values()]
             if self.mesh is not None:
@@ -363,7 +374,10 @@ class Trainer:
         ``NativeCSR``) in shuffled batches of ``batch_size``; returns
         (state, the sum of the step losses). The losses stay on the device
         until the epoch ends. ``train_steps_per_call`` needs no grouping
-        here: K fused steps of the JAX package are K single steps.
+        here: K fused steps of the JAX package are K single steps. The
+        batches are assembled ``prefetch_batches`` ahead on a host thread
+        (``data.prefetch.prefetched``; 0 assembles each in turn), in the
+        same order either way.
 
         On a mesh each dp group trains on its own ``RowSlice`` of the rows
         (``local_row_range``) with its 1/dp block of every global batch,
@@ -395,9 +409,12 @@ class Trainer:
         pack = (self.cfg.wire_format == "packed"
                 and getattr(dataset, "binary", False))
         losses = []
-        for x, idx in epoch_batches(dataset, bs, rng,
-                                    shuffle=self.cfg.shuffle,
-                                    drop_last=drop_last, packed=pack):
+        # the host assembles the next batches on a thread of its own
+        # (prefetch_batches ahead); the device copies stay on this one
+        for x, idx in prefetched(
+                epoch_batches(dataset, bs, rng, shuffle=self.cfg.shuffle,
+                              drop_last=drop_last, packed=pack),
+                depth=self.cfg.prefetch_batches):
             if offset:
                 idx = idx + np.int32(offset)   # slice position -> user id
             if self.mesh is not None:   # this rank's dp block, checked
@@ -706,9 +723,10 @@ class Trainer:
         (state, the best epoch's test results).
 
         Training starts from the module's current parameters (a new Trainer
-        holds its seeded init). ``train_steps_per_call``,
-        ``eval_batches_per_call`` and ``prefetch_batches`` are accepted and
-        mean single steps here. On a mesh every rank runs ``fit``; only the
+        holds its seeded init). ``train_steps_per_call`` and
+        ``eval_batches_per_call`` are accepted and mean single steps here;
+        ``prefetch_batches`` sets ``train_epoch``'s host prefetch. On a mesh
+        every rank runs ``fit``; only the
         main rank logs, and checkpoints are written by it from the whole
         tensors and restored by every rank."""
         cfg = self.cfg

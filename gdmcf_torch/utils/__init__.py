@@ -1,1 +1,1 @@
-"""Utilities: structured metric logging."""
+"""Utilities: structured metric logging and profiling hooks."""

@@ -14,7 +14,9 @@ backward pass is the kernel in the other direction) against the plain
 versions and dense autograd; their plain sums run with deterministic
 ``index_add_``. AdamW tolerance:
 ``fused_adamw.update_bounds`` (one ulp of a moment's storage type plus a
-few float32 ulps of its terms, from fused multiply-adds).
+few float32 ulps of its terms, from fused multiply-adds); its master form
+within ``fused_adamw.master_update_bounds`` (the same on the master, the
+bfloat16 tensor within one more bfloat16 ulp).
 """
 
 import numpy as np
@@ -251,6 +253,71 @@ def test_adamw_kernel_matches_plain(cuda, shape, moment_dtype, wd):
             assert got.dtype == w.dtype
             over = (got.float() - w.float()).abs() > b
             assert not over.any(), f"{what}: {int(over.sum())} over bound"
+
+
+@pytest.mark.parametrize("moment_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+@pytest.mark.parametrize("shape", [(), (1024,), (1000, 37), (65537,)])
+def test_adamw_master_form_matches_plain(cuda, shape, moment_dtype, wd):
+    """The kernel's master form (a bfloat16 p and g, a float32 master)
+    against ``adamw_master_reference``, three steps from the same inputs
+    each, within ``master_update_bounds``; two launches bitwise equal."""
+    gen = torch.Generator(cuda).manual_seed(1)
+    m = 0.05 * torch.randn(shape, generator=gen, device=cuda)
+    p = m.to(torch.bfloat16)
+    mu = torch.zeros(shape, dtype=moment_dtype, device=cuda)
+    nu = torch.zeros(shape, dtype=moment_dtype, device=cuda)
+    count = torch.zeros((), dtype=torch.int32, device=cuda)
+    for _ in range(3):
+        g = (0.1 * torch.randn(shape, generator=gen, device=cuda)).to(
+            torch.bfloat16)
+        count = count + 1
+        c = TA.step_scalars(count, 1e-3)
+        want = TA.adamw_master_reference(p, g, mu, nu, m, c, wd=wd)
+        bounds = TA.master_update_bounds(p, g, mu, nu, m, c, wd=wd)
+        twice = [t.clone() for t in (p, mu, nu, m)]
+        before = TA.LAUNCHES["fused_adamw_master"]
+        TA.adamw_master_update_(p, g, mu, nu, m, c, wd=wd)
+        TA.adamw_master_update_(twice[0], g, twice[1], twice[2], twice[3],
+                                c, wd=wd)
+        torch.cuda.synchronize()
+        assert TA.LAUNCHES["fused_adamw_master"] == before + 2
+        for got, again in zip((p, mu, nu, m), twice):
+            assert torch.equal(got, again)
+        for got, w, b, what in zip((p, mu, nu, m), want, bounds,
+                                   ("p", "mu", "nu", "master")):
+            assert got.dtype == w.dtype
+            over = (got.float() - w.float()).abs() > b
+            assert not over.any(), f"{what}: {int(over.sum())} over bound"
+        assert torch.equal(p, m.to(torch.bfloat16))
+        # continue from the plain state: the next step starts from the
+        # same inputs again
+        p, mu, nu, m = want
+
+
+def test_adamw_master_form_refuses_instead_of_falling_back(cuda):
+    z = dict(device=cuda)
+    p = torch.zeros(64, 32, dtype=torch.bfloat16, **z)
+    good = dict(g=torch.zeros(64, 32, dtype=torch.bfloat16, **z),
+                mu=torch.zeros(64, 32, dtype=torch.bfloat16, **z),
+                nu=torch.zeros(64, 32, dtype=torch.bfloat16, **z),
+                m=torch.zeros(64, 32, **z),
+                c=TA.step_scalars(torch.ones((), dtype=torch.int32, **z),
+                                  1e-3))
+    for match, change in (
+            ("master form", dict(m=torch.zeros(64, 32, dtype=torch.bfloat16,
+                                               **z))),
+            ("master form", dict(g=torch.zeros(64, 32, **z))),
+            ("shape", dict(m=torch.zeros(64, 31, **z))),
+            ("contiguous", dict(m=torch.zeros(32, 64, **z).T)),
+            ("must be on", dict(m=torch.zeros(64, 32)))):
+        a = dict(good, **change)
+        with pytest.raises(ValueError, match=match):
+            TA.adamw_master_update_(p, a["g"], a["mu"], a["nu"], a["m"],
+                                    a["c"])
+    # the plain form refuses a bfloat16 tensor and names the master form
+    with pytest.raises(ValueError, match="master form"):
+        TA.adamw_update_(p, good["g"], good["mu"], good["nu"], good["c"])
 
 
 def test_adamw_cuda_tensor_refuses_instead_of_falling_back(cuda):

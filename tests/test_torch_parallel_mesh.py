@@ -22,7 +22,13 @@ Tolerances:
 - sharded top-k: ids and values exactly (ties to the lowest index);
 - evaluations: metric means within 1.01e-4 (one unit of the 4-decimal
   rounding), as tests/multihost_worker.py compares them;
-- checkpoints: bitwise.
+- checkpoints: bitwise;
+- ``bf16_weights`` on (2, 2) against the single process at the same
+  weights and draws: the loss within rtol 1e-5; stored tensors, masters
+  and float32 tensors as in tests/test_torch_bf16.py (at most 2% of a
+  tensor, or one element, past rtol 1e-4 / atol 2e-2 x lr, plus one
+  bfloat16 ulp for a stored tensor; every element within 2 x lr): the
+  mesh sums a bfloat16 gradient over dp from each block's rounding.
 """
 
 import json
@@ -75,6 +81,7 @@ STEP_LOSS = dict(rtol=2e-4)
 STEP_PARAMS = dict(rtol=5e-3, atol=1e-5)
 CLIP = 0.05
 K = 5
+BF16 = ("in_layers/", "embedding_item")
 
 
 def t_(a):
@@ -208,7 +215,7 @@ class World:
                      history_num_per_term=2, drop_last=True),
             lgn_cfg=dict(dims=[16], emb_size=10, steps=5, noise_scale=0.01,
                          batch_size=B, sampling_steps=0, random_seed=3),
-            single_step=1)
+            single_step=1, bf16_weights=list(BF16))
         self._single_checkpoint()
         np.savez(os.path.join(work, "inputs.npz"), **inp)
         with open(os.path.join(work, "inputs.json"), "w") as fh:
@@ -482,3 +489,64 @@ def test_global_mesh_coordinates_follow_the_rank(world):
         assert (dp_i, mp_i) == (rank // MP, rank % MP)
         assert whole == {"dp": 1, "mp": DP * MP}
         assert main == (rank == 0)
+
+
+def test_bf16_weights_on_the_mesh_match_the_single_process(world):
+    """bf16_weights on (2, 2): the selected tensors stored bfloat16 on
+    every rank, each master a float32 block of its tensor's shape (sharded
+    as the tensor is), one step against the single process, and the mesh's
+    checkpoint restored bitwise into a single-device trainer."""
+    from test_torch_bf16 import within
+
+    got = ok(world, "bf16_mesh")
+    for r in got:
+        assert r["loss"] == got[0]["loss"]
+        assert set(r["local"]) == {"embedding_item", "in_layers.0.weight",
+                                   "in_layers.0.bias"}
+        for k, (m_shape, p_shape, p_dtype, m_dtype) in r["local"].items():
+            assert m_shape == p_shape, k
+            assert (p_dtype, m_dtype) == ("torch.bfloat16", "torch.float32")
+        assert r["local"]["embedding_item"][0][0] == N_ITEM // MP
+        assert r["local"]["in_layers.0.weight"][0] == [16,
+                                                       (N_ITEM + 10) // MP]
+    inp = world.inp
+    t = TTrainer(TConfig(device="cpu", bf16_weights=BF16, **CFG), N_USER,
+                 N_ITEM)
+    t.model.load_state_dict({k: t_(v) for k, v in world.weights.items()})
+    state = t.init_state()
+    draws = TE.TrainDraws(
+        ts_u=TE.TimestepDraws(t_(inp["d_tsu"]), t_(inp["d_tsu"])),
+        corrupt_u=t_(inp["d_corrupt"]),
+        ts=TE.TimestepDraws(t_(inp["d_ts"]), t_(inp["d_ts"])),
+        noise=t_(inp["d_noise"]),
+        dropout=(t_(inp["d_drop0"]), t_(inp["d_drop1"])))
+    state, loss = t.train_step(state, t_(inp["s_x"]), t_(inp["s_idx"]),
+                               draws=draws)
+    np.testing.assert_allclose(got[0]["loss"], float(loss), rtol=1e-5)
+    lr = CFG["lr"]
+    for k, p in state.params.items():
+        want = p.detach().float().numpy()
+        mesh = world.out[f"bf16.param.{k}"]
+        extra = 0.0
+        if p.dtype == torch.bfloat16:
+            extra = float(torch.finfo(torch.bfloat16).eps) * np.abs(want)
+            within(world.out[f"bf16.master.{k}"],
+                   state.opt_state.master[k].numpy(),
+                   1e-4 * np.abs(want) + 2e-2 * lr, 2 * lr, 0.02,
+                   f"{k} master")
+        within(mesh, want, extra + 1e-4 * np.abs(want) + 2e-2 * lr,
+               extra + 2 * lr, 0.02, k)
+    # the mesh's checkpoint: bitwise into a single-device trainer
+    t2 = TTrainer(TConfig(device="cpu", bf16_weights=BF16, **CFG), N_USER,
+                  N_ITEM)
+    restored = Checkpointer(os.path.join(world.work, "bf16_ckpt")).restore(
+        t2.init_state())
+    assert set(restored.opt_state.master) == set(got[0]["local"])
+    for k, p in restored.params.items():
+        np.testing.assert_array_equal(p.detach().float().numpy(),
+                                      world.out[f"bf16.param.{k}"],
+                                      err_msg=k)
+    for k, m in restored.opt_state.master.items():
+        np.testing.assert_array_equal(m.numpy(),
+                                      world.out[f"bf16.master.{k}"],
+                                      err_msg=k)

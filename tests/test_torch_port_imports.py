@@ -65,12 +65,17 @@ def test_pretraining_names_import_without_jax():
 
 @pytest.mark.parametrize("path", ["gdmcf_torch", "chip_smoke.py"])
 def test_port_sources_name_no_reference_package(path):
+    """No import of JAX, of the JAX package or of its optimizer library,
+    and no use of that library's names. The word itself may appear: it is
+    a value of ``opt_impl``, which the port accepts (and runs as its
+    single-pass AdamW)."""
     files = ([ROOT / path] if path.endswith(".py")
              else list((ROOT / path).rglob("*.py"))
              + list((ROOT / path).rglob("*.cu")))
     for f in files:
         text = f.read_text()
-        for word in ("import jax", "from jax", "gdmcf_tpu", "optax"):
+        for word in ("import jax", "from jax", "gdmcf_tpu", "import optax",
+                     "from optax", "optax."):
             assert word not in text, f"{f} mentions {word!r}"
 
 
@@ -200,4 +205,27 @@ def test_serving_and_compat_names_import_without_jax():
         "absorbing_qt_bar, LegacyNoiseDraws)")
     bad = [m for m in mods if m == "jax" or m.startswith(("jax.",
                                                           "gdmcf_tpu"))]
+    assert not bad, bad
+
+
+def test_the_host_utility_and_parity_modules_are_among_those_checked():
+    """The prefetch thread, the profiling hooks, the graph converters and
+    the parity runner are modules of the package, so the check above
+    imports them too; importing them loads neither JAX nor Triton."""
+    for m in ("gdmcf_torch.data.prefetch", "gdmcf_torch.utils.profiling",
+              "gdmcf_torch.data.graph_convert", "gdmcf_torch.parity_run"):
+        assert m in MODULES, m
+    mods = _modules_after(
+        "from gdmcf_torch.data.prefetch import prefetched\n"
+        "from gdmcf_torch.utils.profiling import (StepTimer, trace, "
+        "compiled_cost)\n"
+        "from gdmcf_torch.data.graph_convert import (adjacency_to_edge, "
+        "topk_set)\n"
+        "from gdmcf_torch.data.native import NativeCSR\n"
+        "assert callable(NativeCSR.from_edge_list)\n"
+        "from gdmcf_torch.ops.fused_adamw import (adamw_master_update_, "
+        "adamw_master_reference, master_update_bounds)\n"
+        "from gdmcf_torch.parity_run import main")
+    bad = [m for m in mods if m in ("jax", "triton")
+           or m.startswith(("jax.", "triton.", "gdmcf_tpu", "optax"))]
     assert not bad, bad

@@ -238,9 +238,18 @@ def test_trainer_refuses_noise_scale_zero_for_the_graph_backbone():
     ("param_dtype", "bfloat16"), ("bf16_weights", ("in_layers",)),
     ("opt_impl", "optax")])
 def test_unported_optimizer_options_raise(field, value):
+    """The options once refused here are ported: each builds its state
+    (bfloat16 storage with float32 masters where it selects any) and
+    trains a step; ``tests/test_torch_bf16.py`` holds them to the JAX
+    package."""
     t = TTrainer(TConfig(device="cpu", dims=[8], **{field: value}), 4, 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.init_state()
+    state = t.init_state()
+    bf16 = {k for k, p in state.params.items() if p.dtype == torch.bfloat16}
+    assert set(state.opt_state.master) == bf16
+    assert bool(bf16) == (field != "opt_impl")
+    x = (np.random.default_rng(0).random((4, 5)) < 0.5).astype(np.float32)
+    state, loss = t.train_step(state, t_(x), t_(np.arange(4, dtype=np.int32)))
+    assert np.isfinite(loss.item()) and state.step == 1
 
 
 # ---------------------------------------------------------------------------
@@ -296,7 +305,7 @@ def test_fused_adamw_apply_on_cpu_updates_in_place_without_the_kernel():
     TA.reset_launch_counts()
     ptr = params["w"].data_ptr()
     state = TA.fused_adamw_apply(params, grads, state, lr=0.1)
-    assert TA.LAUNCHES == {"fused_adamw": 0}
+    assert TA.LAUNCHES == {"fused_adamw": 0, "fused_adamw_master": 0}
     assert int(state.count) == 1 and params["w"].data_ptr() == ptr
     # step 1 of Adam moves every element by lr against its gradient's sign
     torch.testing.assert_close(params["w"].detach(), torch.full((3, 4), 0.9))
@@ -429,7 +438,8 @@ def test_train_epoch_trains_and_serves():
     state, total = trainer.train_epoch(state, NativeCSR.from_scipy(csr),
                                        np.random.default_rng(0))
     assert np.isfinite(total) and state.step == 5
-    assert TA.LAUNCHES == {"fused_adamw": 0}   # CPU tensors: plain version
+    # CPU tensors: the plain version
+    assert TA.LAUNCHES == {"fused_adamw": 0, "fused_adamw_master": 0}
     for k, p in state.params.items():
         assert not torch.equal(p.detach(), before[k]), f"{k} did not move"
     # 5 steps x 8 timesteps into rings of 10

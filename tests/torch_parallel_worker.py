@@ -139,6 +139,15 @@ def main():
         return True
     check("forward", forward)
 
+    def step_draws():
+        """This rank's rows of the JAX mesh step's draws."""
+        ts = TimestepDraws(block(inp["d_ts"]), block(inp["d_ts"]))
+        tsu = TimestepDraws(block(inp["d_tsu"]), block(inp["d_tsu"]))
+        return TrainDraws(ts_u=tsu, corrupt_u=block(inp["d_corrupt"]),
+                          ts=ts, noise=block(inp["d_noise"]),
+                          dropout=(block(inp["d_drop0"]),
+                                   block(inp["d_drop1"])))
+
     def train_step(clip, tag):
         t = trainer
         if clip:
@@ -147,14 +156,8 @@ def main():
                         n_user, n_item)
             load_full_state(t.model, weights("w."))
         state = t.init_state()
-        ts = TimestepDraws(block(inp["d_ts"]), block(inp["d_ts"]))
-        tsu = TimestepDraws(block(inp["d_tsu"]), block(inp["d_tsu"]))
-        draws = TrainDraws(ts_u=tsu, corrupt_u=block(inp["d_corrupt"]),
-                           ts=ts, noise=block(inp["d_noise"]),
-                           dropout=(block(inp["d_drop0"]),
-                                    block(inp["d_drop1"])))
         state, loss = t.train_step(state, block(inp["s_x"]),
-                                   block(inp["s_idx"]), draws=draws)
+                                   block(inp["s_idx"]), draws=step_draws())
         res[f"{tag}_loss"] = float(loss)
         full = {k: full_tensor(p) for k, p in state.params.items()}
         for k, v in full.items():
@@ -307,6 +310,29 @@ def main():
         ok = ok and _t.equal(state2.lt.history, data["lt_history"])
         return bool(ok)
     check("checkpoint_single_into_mesh", checkpoints)
+
+    # -- bf16_weights: bfloat16 storage, masters sharded as their tensors
+    def bf16_mesh():
+        t = Trainer(Config(device="cpu", mesh_dp=dp, mesh_mp=mp,
+                           bf16_weights=tuple(meta["bf16_weights"]),
+                           **meta["cfg"]), n_user, n_item)
+        load_full_state(t.model, weights("w."))
+        state = t.init_state()
+        state, loss = t.train_step(state, block(inp["s_x"]),
+                                   block(inp["s_idx"]), draws=step_draws())
+        local = {}
+        for k, m in state.opt_state.master.items():
+            p = state.params[k]
+            local[k] = [list(m.shape), list(p.shape), str(p.dtype),
+                        str(m.dtype)]
+            out[f"bf16.master.{k}"] = full_tensor(
+                m, shard_of(p)).numpy().copy()
+        for k, p in state.params.items():
+            out[f"bf16.param.{k}"] = full_tensor(p).detach().float() \
+                .numpy().copy()
+        Checkpointer(os.path.join(work, "bf16_ckpt")).save(state)
+        return {"loss": float(loss), "local": local}
+    check("bf16_mesh", bf16_mesh)
 
     # -- DNNlightGCN: the frozen tables sharded --------------------------
     def lightgcn():
