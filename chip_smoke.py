@@ -203,10 +203,32 @@ Phases (any failure exits non-zero):
      prefetch_batches 0 and 2 (time only); three steps inside
      gdmcf_torch.utils.profiling.trace, the trace written to
      chiprun_out/bf16_trace/trace.json;
- 21. the kernel JSON line, the card's name and power limit, and as the
+ 21. serving on a (dp, mp) mesh and the options that read across batch
+     rows on a mesh, each a world of ranks sharing the card over gloo,
+     against single-process runs on the card: python -m
+     gdmcf_torch.serve_http on (2,2) serving the flagship in float32 from
+     a checkpoint of fit's layout (the main rank binds the port, the
+     others follow): the ids of 512 users equal one process's but for
+     swapped pairs scored within 1e-5, 256-user request p50/p90, 1 and 16
+     clients of 1-user requests (every answer one process's), a SIGHUP
+     reload to a newer checkpoint under 16 clients with 0 failed requests
+     and the new checkpoint's ids after it, SIGTERM with every rank
+     exiting 0, device memory by rank; lightGCN on (1,2) through
+     build_recommender (2 + 2 SpMM launches per rank at start-up, none by
+     the dispatches, the ids of 400 users one process's); 3 train steps
+     of 400 of the flagship under symmetric_gcn on (2,2) at the
+     Amazon-Book width, and of G9's OneHotMatrix 1 DNN and G7's
+     transformer on (2,1) at the round-3 set, each under phase 19's
+     limits (the transformer's attention key bias, rounding noise in
+     exact arithmetic, within 2 lr a step), one AdamW launch per rank per
+     step for each of the rank's tensors; step p50 and peak memory by
+     rank, not scaling numbers;
+ 22. the kernel JSON line, the card's name and power limit, and as the
      last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --mesh-phase     # phase 19 alone, no JSON line
+    python3 chip_smoke.py --serve-mesh-phase
+                                           # phase 21 alone, no JSON line
     python3 chip_smoke.py --precision-phase
                                            # phases 5, 6 and 20 alone: the
                                            # float32 epoch, then the
@@ -2989,14 +3011,18 @@ def mesh_reference(torch, trainer, data, users, tmp, tag, bits: bool):
     return losses
 
 
-def mesh_steps(torch, trainer, cfg, tmp, tag, dp, mp, rank, fault=""):
+def mesh_steps(torch, trainer, cfg, tmp, tag, dp, mp, rank, fault="",
+               noise=None):
     """MESH_STEPS train steps of this rank's dp block of the single-process
     batches, then each trainable tensor against the single-process run's
     (``ref_<tag>.pt``): [elements past MESH_PARAMS, elements, largest
     difference in lr, and with ``bits_<tag>.pt``: those past it not at the
     floor, those at the floor]. ``fault`` plants one for --mesh-diagnostic:
     ``lookup`` drops the user table's gradient, ``dp`` leaves
-    ``in_layers.0.weight``'s gradient out of the dp all-reduce."""
+    ``in_layers.0.weight``'s gradient out of the dp all-reduce. ``noise``:
+    (name, tensor) -> a mask of elements whose gradient is rounding noise
+    in exact arithmetic, left out of the count and reported as their
+    largest difference in lr (``noise_lr``)."""
     import scipy.sparse as sp
 
     from gdmcf_torch.data.native import NativeCSR
@@ -3051,12 +3077,17 @@ def mesh_steps(torch, trainer, cfg, tmp, tag, dp, mp, rank, fault=""):
         del grads
     ref = torch.load(os.path.join(tmp, f"ref_{tag}.pt"), mmap=True,
                      weights_only=True)
-    share, report = 0.0, {}
+    share, report, noise_lr = 0.0, {}, 0.0
     for k, p in state.params.items():
         want = mine(ref[k], p)
         diff = (p.detach() - want).abs()
         ratio = diff / (MESH_PARAMS["atol"]
                         + MESH_PARAMS["rtol"] * want.abs())
+        if noise is not None:
+            mask = noise(k, p)
+            if bool(mask.any()):
+                noise_lr = max(noise_lr, float(diff[mask].max()) / cfg.lr)
+            ratio = ratio.masked_fill(mask, 0.0)
         share = max(share, float(ratio.max()))
         past = ratio >= 1
         report[k] = [int(past.sum()), p.numel(), float(diff.max()) / cfg.lr]
@@ -3065,7 +3096,7 @@ def mesh_steps(torch, trainer, cfg, tmp, tag, dp, mp, rank, fault=""):
             report[k] += [int((past & ~floor).sum()), int(floor.sum())]
     return dict(losses=losses, launches=launches, step_ms=step_ms,
                 local_tensors=len(state.params), param_share=share,
-                param_report=report,
+                param_report=report, noise_lr=noise_lr,
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30), state
 
 
@@ -3568,6 +3599,580 @@ def mesh_diagnostic(root, card, torch, csr):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase 21: serving on a (dp, mp) mesh and the options that read across
+# batch rows on a mesh
+SERVE_MESH = (2, 2)
+SERVE_MESH_USERS = 512         # two 256-user dispatches held to one process
+SERVE_MESH_TIMED = 20          # 256-user dispatches timed one after another
+SERVE_MESH_CLIENTS = {1: 40, 16: 8}   # clients -> 1-user requests each
+SERVE_MESH_RELOAD_S = 8.0      # the 16-client load around the SIGHUP reload
+SERVE_MESH_TIMEOUT = 600       # a world's ranks are killed past it
+OPTION_MESH = (2, 1)
+OPTION_GATES = {"oh1": "G9_oh1", "tr": "G7_DNNOneHotTransformer"}
+# the transformer: ReLU kinks (a row's pre-activation rounding to either
+# side of zero) and gradients spanning 1e5 put a few elements past
+# MESH_PARAMS that are not at phase 19's floor; each may be at most 2 lr a
+# step apart (Adam's normalized step) and they at most MESH_EXCUSED_SHARE
+# of a rank's tensor, at the floor or not. Set after the first card run of
+# phase 21 read one such element, 0.417 lr apart (PERF.md section 6)
+
+
+def serve_config(root, **kw):
+    """The flagship recipe for phase 21, in float32 (TF32 off, so that a
+    mesh's ids are held to one process's as phase 19 holds them)."""
+    from gdmcf_torch.config import load_config
+
+    return load_config(os.path.join(root, "configs", "amazonOneEmbGcn.yaml"),
+                       dict(dict(compute_dtype="float32", host_dense=False),
+                            **kw))
+
+
+def option_config(tag, **kw):
+    """A round-3 gate's recipe (phase 16's G9 or G7) in float32."""
+    gate = {g[0]: g[2] for g in BACKBONE_GATES}[OPTION_GATES[tag]]
+    return golden_config(0, **dict(gate, compute_dtype="float32", **kw))
+
+
+def key_bias(name, p):
+    """The transformer's attention key bias (the middle third of each
+    ``qkv`` bias): zero gradient in exact arithmetic, so its float32
+    gradient is rounding noise that Adam turns into +-lr a step
+    (tests/test_torch_onehot_modes.py)."""
+    import torch
+    mask = torch.zeros(p.shape, dtype=torch.bool, device=p.device)
+    if name.endswith("qkv.bias"):
+        d = p.shape[0] // 3
+        mask[d:2 * d] = True
+    return mask
+
+
+def serve_reference(torch, rec, users):
+    """One process's answers to ``users`` in dispatches of ``serve_batch``
+    after its warm-up: {"ids": [n, k_max], "scores": [n, n_item]} on the
+    host, each dispatch's scores from the generator state it started
+    from."""
+    rec.warmup()
+    ids, scores = [], []
+    for lo in range(0, len(users), rec.serve_batch):
+        u = np.asarray(users[lo:lo + rec.serve_batch], np.int64)
+        flags = np.ones(len(u), bool)
+        state = rec._generator.get_state()
+        ids.append(torch.from_numpy(rec.recommend_batch(u, flags)))
+        pad = rec.serve_batch - len(u)
+        padded = np.concatenate([u, np.zeros(pad, np.int64)])
+        rows, mask = rec._rows(padded, np.concatenate(
+            [flags, np.zeros(pad, bool)]))
+        gen = torch.Generator(rec.trainer.device).set_state(state)
+        dev = rec.trainer.device
+        _, sc = rec.trainer.eval_step(
+            torch.from_numpy(rows).to(dev), torch.from_numpy(padded).to(dev),
+            torch.from_numpy(mask).to(dev),
+            sampling_steps=rec.trainer.cfg.sampling_steps, top_k=rec.k_max,
+            generator=gen, return_scores=True)
+        scores.append(sc[:len(u)].cpu())
+    return {"ids": torch.cat(ids), "scores": torch.cat(scores)}
+
+
+def serve_mesh_worker(argv) -> int:
+    """One rank of a phase-21 world (``--serve-mesh-worker KIND DP MP
+    DIR``), started under the env contract of ``multihost.initialize``;
+    writes ``DIR/<KIND>_<DP>x<MP>_rank<r>.json``. KIND: ``flagship`` or
+    ``lightgcn`` (``build_recommender`` on the mesh, the main rank's
+    dispatches against one process's, the others following; the
+    flagship's from the checkpoint in ``DIR/ckpt``, its 256-user dispatches
+    timed), ``sym`` (the flagship under symmetric_gcn: the steps of
+    ``mesh_steps``) or ``options`` (OneHotMatrix 1 and the transformer at
+    the round-3 set)."""
+    import faulthandler
+
+    kind, dp, mp, tmp = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    faulthandler.dump_traceback_later(SERVE_MESH_TIMEOUT, exit=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    import scipy.sparse as sp
+    import torch
+
+    from gdmcf_torch.parallel import multihost
+
+    out = {}
+    mesh = dict(mesh_dp=dp, mesh_mp=mp, device="cuda:0")
+    if kind in ("flagship", "lightgcn"):
+        from gdmcf_torch.ops import spmm as S
+        from gdmcf_torch.serve import build_recommender
+
+        lgn = kind == "lightgcn"
+        train = sp.load_npz(os.path.join(
+            tmp, "train.npz" if lgn else "served.npz")).tocsr()
+        cfg = (serve_config(root, backbone="lightGCN",
+                            compute_dtype="bfloat16", **mesh) if lgn
+               else serve_config(root, **mesh))
+        S.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        # the entry point starts the process group from the env contract
+        rec = build_recommender(cfg, None if lgn else os.path.join(
+            tmp, "ckpt"), train, N_USER, N_ITEM, serve_batch=256, k_max=100)
+        out["startup_launches"] = dict(S.LAUNCHES)
+        if rec.is_main:
+            users = np.load(os.path.join(
+                tmp, "lgn_users.npy" if lgn else "served_users.npy"))
+            ids, _ = rec.recommend(users, k=100)
+            out["tie_pairs"], out["other_differences"] = compare_ids(
+                torch.from_numpy(ids), torch.load(os.path.join(
+                    tmp, f"{kind}_serve_ref.pt"), weights_only=True))
+            if not lgn:   # 256-user dispatches, one after another
+                excl = np.ones(256, bool)
+                ms = []
+                for _ in range(SERVE_MESH_TIMED):
+                    t0 = time.perf_counter()
+                    rec.recommend_batch(users[:256], excl)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                out["dispatch_ms"] = ms
+            rec.stop()
+        else:
+            rec.follow()
+        out["launches_after"] = dict(S.LAUNCHES)
+        if lgn:
+            out["frozen_user_local"] = list(
+                rec.trainer.model.frozen_lgn_user.shape)
+    else:
+        from gdmcf_torch.train.trainer import Trainer
+
+        multihost.initialize(backend="gloo", device="cuda")
+        torch.cuda.set_device(0)
+        rank = multihost.process_index()
+        if kind == "sym":
+            cfg = mesh_config(root, tmp, symmetric_gcn=True, **mesh)
+            trainer = Trainer(cfg, N_USER, N_ITEM)
+            out["sym"], _ = mesh_steps(torch, trainer, cfg, tmp, "sym", dp,
+                                       mp, rank)
+        else:
+            train = sp.load_npz(os.path.join(tmp, "train.npz")).tocsr()
+            for tag in OPTION_GATES:
+                cfg = option_config(tag, **mesh)
+                trainer = Trainer(cfg, *train.shape)
+                out[tag], _ = mesh_steps(
+                    torch, trainer, cfg, tmp, tag, dp, mp, rank,
+                    noise=key_bias if tag == "tr" else None)
+                del trainer
+                gc.collect()
+                torch.cuda.empty_cache()
+    rank = multihost.process_index()
+    out["rank"] = rank
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(tmp, f"{kind}_{dp}x{mp}_rank{rank}.json"),
+              "w") as fh:
+        json.dump(out, fh)
+    multihost.sync_hosts()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def start_serve_world(kind, dp, mp, tmp):
+    port = fixed_port()
+    procs = []
+    for rank in range(dp * mp):
+        env = dict(os.environ, COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   NUM_PROCESSES=str(dp * mp), PROCESS_ID=str(rank),
+                   DIST_BACKEND="gloo", OMP_NUM_THREADS="2")
+        logf = open(os.path.join(tmp, f"{kind}_{dp}x{mp}_rank{rank}.log"),
+                    "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--serve-mesh-worker", kind, str(dp), str(mp), tmp], env=env,
+            stdout=logf, stderr=subprocess.STDOUT))
+        logf.close()
+    return procs
+
+
+def check_steps(label, ranks, ref_losses, transformer=False):
+    """Phase 19's limits on a world's MESH_STEPS steps: the losses within
+    MESH_LOSS_RTOL, the parameters within MESH_PARAMS but for elements at
+    the rounding floor (at most MESH_EXCUSED_SHARE of a rank's tensor);
+    one K1 launch per rank per step for each of the rank's tensors. The
+    ``transformer``: its key bias within 2 lr a step, and the elements
+    past MESH_PARAMS excused at the floor or not (see the note above
+    OPTION_MESH). Returns (largest excused share, [past, at the floor,
+    elements] by tensor)."""
+    counts = {}
+    for r in ranks:
+        for s, (a, b) in enumerate(zip(r["losses"], ref_losses)):
+            assert abs(a - b) <= MESH_LOSS_RTOL * abs(b), \
+                f"{label} rank {r['rank']} step {s}: {a} vs {b}"
+        rep = r["param_report"]
+        if transformer:
+            far = {k: v for k, v in rep.items()
+                   if v[0] and v[2] > 2 * MESH_STEPS * 1.0001}
+            assert not far, (label, r["rank"], "past 2 lr a step", far)
+            assert r["noise_lr"] <= 2 * MESH_STEPS * 1.0001, \
+                (label, r["noise_lr"])
+        else:
+            bad = {k: v for k, v in rep.items() if v[3]}
+            assert not bad, (label, r["rank"], "past, not at the floor",
+                             bad)
+        # every element still past MESH_PARAMS is an excused one
+        wide = {k: v for k, v in rep.items()
+                if v[0] > MESH_EXCUSED_SHARE * v[1]}
+        assert not wide, (label, r["rank"], "excused", wide)
+        assert r["launches"] == [r["local_tensors"]] * MESH_STEPS, \
+            (label, r["launches"], r["local_tensors"])
+        for k, v in rep.items():
+            c = counts.setdefault(k, [0, 0, 0])
+            c[0], c[1], c[2] = c[0] + v[0], c[1] + v[4], c[2] + v[1]
+    excused = max(v[0] / v[1] for r in ranks
+                  for v in r["param_report"].values())
+    return excused, {k: c for k, c in counts.items() if c[0] or c[1]}
+
+
+def fixed_port() -> int:
+    """A free port below the kernel's ephemeral range: the ranks of a world
+    open many sockets while the server starts (gloo's pairs, the store's
+    clients), and one of them may take a port that ``free_port`` released
+    back to that range."""
+    import random
+    import socket
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as fh:
+            low = int(fh.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    for _ in range(200):
+        port = random.randrange(max(1024, low - 8000), low)
+        with socket.socket() as probe:
+            try:
+                probe.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError("no free port below the ephemeral range")
+
+
+def tie_check(rows, users, ref, pos):
+    """compare_ids for answers ``rows`` ([n, k] lists) of ``users`` against
+    a reference held by user position ``pos`` (user -> row of ``ref``)."""
+    import torch
+    k = len(rows[0])
+    at = [pos[int(u)] for u in users]
+    return compare_ids(torch.tensor(rows), {
+        "ids": ref["ids"][at, :k], "scores": ref["scores"][at]})
+
+
+def serve_mesh_daemon(root, card, tmp, data_dir, ck, ck_next, refs, users):
+    """`python -m gdmcf_torch.serve_http` on SERVE_MESH: four ranks sharing
+    the card over gloo, the main rank binding the port. Its answers against
+    one process's (``refs``: the checkpoint in ``ck``, then the one that
+    ``ck_next`` moves in), 1 and 16 clients of 1-user requests, a SIGHUP
+    reload under 16 clients and SIGTERM."""
+    import signal
+
+    dp, mp = SERVE_MESH
+    port = coord = fixed_port()
+    while coord == port:
+        coord = fixed_port()
+    base = f"http://127.0.0.1:{port}"
+    cmd = [sys.executable, "-m", "gdmcf_torch.serve_http", "-c",
+           os.path.join(root, "configs", "amazonOneEmbGcn.yaml"),
+           "--device", "cuda:0", "--compute_dtype", "float32",
+           "--mesh_dp", str(dp), "--mesh_mp", str(mp), "--data_path",
+           data_dir, "--ckpt_dir_serve", ck, "--host", "127.0.0.1",
+           "--port", str(port), "--serve_batch", "256", "--k_max", "100"]
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for rank in range(dp * mp):
+        env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="2",
+                   COORDINATOR_ADDRESS=f"127.0.0.1:{coord}",
+                   NUM_PROCESSES=str(dp * mp), PROCESS_ID=str(rank),
+                   DIST_BACKEND="gloo", HEARTBEAT_TIMEOUT_S="300")
+        logs.append(os.path.join(tmp, f"daemon_{dp}x{mp}_rank{rank}.log"))
+        with open(logs[-1], "w") as fh:
+            procs.append(subprocess.Popen(cmd, cwd=root, env=env, stdout=fh,
+                                          stderr=subprocess.STDOUT))
+    pos = {int(u): i for i, u in enumerate(users)}
+
+    def stats():
+        return get_json(base + "/healthz")[1]["stats"]
+
+    def post(u, k):
+        code, body = get_json(base + "/recommend", json.dumps(
+            {"users": [int(x) for x in u], "k": k}).encode())
+        assert code == 200, body
+        return body["items"]
+
+    try:
+        wait_healthz(base, procs[0], limit=SERVE_MESH_TIMEOUT)
+        up_s = time.perf_counter() - t0
+        got = post(users[:256], 100) + post(users[256:], 100)
+        ties, bad = tie_check(got, users, refs[0], pos)
+        assert bad == 0, ("mesh ids", ties, bad)
+        loads = {}
+        for clients, count in SERVE_MESH_CLIENTS.items():
+            s0 = stats()
+            res = finish_load(start_load(base, clients, count, 0, users))
+            s1 = stats()
+            reqs = res["requests"]
+            errors = [r[4] for r in reqs if r[4] is not None]
+            assert not errors, (clients, errors[:3])
+            lt = [0, 0]
+            for u, _t, _ms, items, _e in reqs:
+                t_, b_ = tie_check([items], [u], refs[0], pos)
+                lt = [lt[0] + t_, lt[1] + b_]
+            assert lt[1] == 0, (clients, lt)
+            ms = np.array([r[2] for r in reqs])
+            loads[clients] = dict(
+                requests=len(reqs), rps=len(reqs) / res["wall_s"],
+                p50=float(np.percentile(ms, 50)),
+                p90=float(np.percentile(ms, 90)),
+                p99=float(np.percentile(ms, 99)), ties=lt[0],
+                rows_per_dispatch=(s1["rows"] - s0["rows"])
+                / max(s1["dispatches"] - s0["dispatches"], 1))
+        # a newer checkpoint in the served directory, then SIGHUP under
+        # 16 clients
+        name = os.listdir(ck_next)
+        for f in name:
+            os.replace(os.path.join(ck_next, f), os.path.join(ck, f))
+        load = start_load(base, 16, 0, SERVE_MESH_RELOAD_S, users)
+        time.sleep(1.5)
+        t_hup = time.time()
+        procs[0].send_signal(signal.SIGHUP)
+        deadline = time.time() + 300
+        while stats()["params_version"] != 1:
+            assert time.time() < deadline, "SIGHUP did not reload"
+            time.sleep(0.05)
+        reload_s = time.time() - t_hup
+        res = finish_load(load)
+        reqs = res["requests"]
+        errors = [r[4] for r in reqs if r[4] is not None]
+        assert not errors, ("reload", len(errors), errors[:3])
+        for u, _t, _ms, items, _e in reqs:
+            assert any(tie_check([items], [u], ref, pos)[1] == 0
+                       for ref in refs), ("reload", u)
+        during = [r[2] for r in reqs
+                  if r[1] <= t_hup + reload_s and r[1] + r[2] / 1e3 >= t_hup]
+        after = post(users[:256], 100) + post(users[256:], 100)
+        ties2, bad2 = tie_check(after, users, refs[1], pos)
+        assert bad2 == 0, ("after the reload", ties2, bad2)
+        procs[0].send_signal(signal.SIGTERM)
+        rcs = []
+        for p in procs:
+            try:
+                rcs.append(p.wait(timeout=120))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+        assert rcs == [0] * (dp * mp), ("SIGTERM exits", rcs)
+    except BaseException:
+        for r, path in enumerate(logs):
+            with open(path) as fh:
+                log(f"--- daemon rank {r}:\n{fh.read()[-3000:]}")
+        raise
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    log(f"serve mesh ({dp},{mp}) daemon: python -m gdmcf_torch.serve_http "
+        f"on {dp * mp} ranks sharing one card over gloo (not a scaling "
+        f"number), the flagship from a checkpoint of fit's layout, float32:"
+        f" launch to the first /healthz {up_s:.2f} s; the ids of "
+        f"{len(users)} users in 256-user requests equal one process's "
+        f"except {ties} swapped pairs scored within {MESH_TIE} [{card}]")
+    for c, v in loads.items():
+        log(f"serve mesh ({dp},{mp}) http {c} client(s): {v['requests']} "
+            f"1-user GET /recommend?k=20, {v['rps']:.1f} requests/s; "
+            f"latency p50 {v['p50']:.3f} ms, p90 {v['p90']:.3f} ms, p99 "
+            f"{v['p99']:.3f} ms; {v['rows_per_dispatch']:.2f} rows a "
+            f"dispatch; every answer one process's ({v['ties']} tie pairs) "
+            f"[{card}]")
+    log(f"serve mesh ({dp},{mp}) reload: SIGHUP to the main rank under 16 "
+        f"clients: every rank swapped in {reload_s:.2f} s (params_version "
+        f"1), {len(reqs)} requests, 0 failed, the longest during the "
+        f"reload {max(during) if during else 0.0:.3f} ms; the ids after it "
+        f"the new checkpoint's ({ties2} tie pairs); SIGTERM: every rank "
+        f"exited 0 [{card}]")
+    return dict(up_s=up_s, reload_s=reload_s,
+                longest_during_reload_ms=max(during) if during else 0.0,
+                http={c: {k: v[k] for k in ("p50", "p90", "p99", "rps")}
+                      for c, v in loads.items()})
+
+
+def serve_mesh_phase(root, card, torch, csr):
+    """Phase 21: serving on a (dp, mp) mesh and the options that read
+    across batch rows on a mesh, each world of ranks sharing the card over
+    gloo against single-process runs on the card. Returns the launch
+    counts for the kernel line."""
+    import scipy.sparse as sp
+
+    from gdmcf_torch.data.loader import (data_load, data_load_dir,
+                                         generate_synthetic_dataset)
+    from gdmcf_torch.data.native import NativeCSR
+    from gdmcf_torch.serve import Recommender, build_recommender
+    from gdmcf_torch.train.checkpoint import Checkpointer
+    from gdmcf_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="gdmcf_serve_mesh_")
+    try:
+        train, _valid, users, lgn_users = mesh_inputs(csr, tmp)
+        data = NativeCSR.from_scipy(train)
+        r3 = os.path.join(tmp, "round3")
+        os.makedirs(r3)
+        paths = generate_synthetic_dataset(os.path.join(r3, "data"),
+                                           **ROUND3_GATE_SET)
+        r3_train = data_load(*paths)[0].tocsr()
+        sp.save_npz(os.path.join(r3, "train.npz"), r3_train,
+                    compressed=False)
+        r3_users = np.random.default_rng(21).choice(
+            r3_train.shape[0], MESH_STEPS * 400, replace=False).reshape(
+            MESH_STEPS, 400).astype(np.int64)
+        np.save(os.path.join(r3, "mesh_users.npy"), r3_users)
+        r3_data = NativeCSR.from_scipy(r3_train)
+
+        # the single-process runs on the card
+        t0 = time.perf_counter()
+        trainer = Trainer(mesh_config(root, tmp, device="cuda",
+                                      symmetric_gcn=True), N_USER, N_ITEM)
+        sym_ref = mesh_reference(torch, trainer, data, users, tmp, "sym",
+                                 bits=True)
+        del trainer
+        opt_ref = {}
+        for tag in OPTION_GATES:
+            trainer = Trainer(option_config(tag, device="cuda"),
+                              *r3_train.shape)
+            opt_ref[tag] = mesh_reference(torch, trainer, r3_data, r3_users,
+                                          r3, tag, bits=True)
+            del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = build_recommender(serve_config(root, backbone="lightGCN",
+                                             compute_dtype="bfloat16",
+                                             device="cuda"),
+                                None, train, N_USER, N_ITEM, warmup=False,
+                                serve_batch=256, k_max=100)
+        torch.save(serve_reference(torch, rec, lgn_users),
+                   os.path.join(tmp, "lightgcn_serve_ref.pt"))
+        del rec
+        # the flagship's checkpoints in fit's layout and one process's
+        # answers from each
+        data_dir = daemon_data(tmp, train)
+        served = data_load_dir(data_dir)[0]
+        sp.save_npz(os.path.join(tmp, "served.npz"), served,
+                    compressed=False)
+        ck, ck_next = os.path.join(tmp, "ckpt"), os.path.join(tmp, "next")
+        s_users = np.random.default_rng(23).choice(
+            N_USER, SERVE_MESH_USERS, replace=False)
+        np.save(os.path.join(tmp, "served_users.npy"), s_users)
+        refs = []
+        for seed, step, directory in ((0, 0, ck), (1, 1, ck_next)):
+            trainer = Trainer(serve_config(root, device="cuda",
+                                           random_seed=seed), N_USER, N_ITEM)
+            state = trainer.init_state()
+            state.step = step
+            c = Checkpointer(directory, max_to_keep=2)
+            c.save(state)
+            c.close()
+            del state
+            rec = Recommender.from_state(trainer, None, served,
+                                         serve_batch=256, k_max=100)
+            refs.append(serve_reference(torch, rec, s_users))
+            del rec, trainer
+            if seed == 0:
+                torch.save(refs[0], os.path.join(tmp,
+                                                 "flagship_serve_ref.pt"))
+            gc.collect()
+            torch.cuda.empty_cache()
+        log(f"serve mesh phase single-process runs: symmetric_gcn losses "
+            f"{sym_ref}; OneHotMatrix 1 {opt_ref['oh1']}; transformer "
+            f"{opt_ref['tr']}; lightGCN and two flagship checkpoints served"
+            f" ({time.perf_counter() - t0:.1f} s)")
+
+        # the worlds: lightGCN (1,2) beside the round-3 options (2,1), then
+        # each (2,2) world alone: the flagship served in this script's
+        # ranks (its dispatches timed), symmetric_gcn, the daemon
+        t0 = time.perf_counter()
+        first = [("lightgcn", (1, 2), tmp, start_serve_world(
+                      "lightgcn", 1, 2, tmp)),
+                 ("options", OPTION_MESH, r3, start_serve_world(
+                     "options", *OPTION_MESH, r3))]
+        lgn, opts = (finish_world(kind, *m, d, p) for kind, m, d, p in first)
+        flag = finish_world("flagship", *SERVE_MESH, tmp, start_serve_world(
+            "flagship", *SERVE_MESH, tmp))
+        sym = finish_world("sym", *SERVE_MESH, tmp, start_serve_world(
+            "sym", *SERVE_MESH, tmp))
+        daemon = serve_mesh_daemon(root, card, tmp, data_dir, ck, ck_next,
+                                   refs, s_users)
+        worlds_s = time.perf_counter() - t0
+
+        assert flag[0]["other_differences"] == 0, flag[0]
+        for r in flag:
+            assert r["launches_after"] == {"spmm_rows_fwd": 0,
+                                           "spmm_rows_t": 0}, r
+        ms = flag[0]["dispatch_ms"]
+        dispatch = dict(p50=float(np.percentile(ms, 50)),
+                        p90=float(np.percentile(ms, 90)))
+        log(f"serve mesh {SERVE_MESH} flagship: build_recommender from the "
+            f"checkpoint on each rank, float32; the ids of "
+            f"{SERVE_MESH_USERS} users in 256-user dispatches equal one "
+            f"process's except {flag[0]['tie_pairs']} swapped pairs scored "
+            f"within {MESH_TIE}; 256-user dispatch ({SERVE_MESH_TIMED} in "
+            f"turn) p50 {dispatch['p50']:.3f} ms, p90 {dispatch['p90']:.3f}"
+            f" ms; peak memory by rank "
+            f"{[round(r['peak_gib'], 2) for r in flag]} GiB (ranks sharing "
+            f"one card over gloo, not a scaling number) [{card}]")
+
+        for r in lgn:
+            assert r["startup_launches"] == {"spmm_rows_fwd": 2,
+                                             "spmm_rows_t": 2}, r
+            assert r["launches_after"] == r["startup_launches"], r
+        assert lgn[0]["other_differences"] == 0, lgn[0]
+        log(f"serve mesh (1,2) lightGCN: build_recommender on each rank, "
+            f"start-up launches per rank "
+            f"{[r['startup_launches'] for r in lgn]}, none by the "
+            f"dispatches; frozen user table block "
+            f"{lgn[0]['frozen_user_local']}; the ids of {len(lgn_users)} "
+            f"users equal one process's except {lgn[0]['tie_pairs']} "
+            f"swapped pairs scored within {MESH_TIE}; peak memory by rank "
+            f"{[round(r['peak_gib'], 2) for r in lgn]} GiB [{card}]")
+        launches = {"spmm": [r["startup_launches"] for r in lgn],
+                    "fused_adamw": {}}
+        for tag, ranks, ref, mesh, noise in (
+                ("sym", [r["sym"] for r in sym], sym_ref, SERVE_MESH, False),
+                ("oh1", [r["oh1"] for r in opts], opt_ref["oh1"],
+                 OPTION_MESH, False),
+                ("tr", [r["tr"] for r in opts], opt_ref["tr"], OPTION_MESH,
+                 True)):
+            for r, src in zip(ranks, sym if tag == "sym" else opts):
+                r["rank"] = src["rank"]
+            excused, counts = check_steps(tag, ranks, ref, noise)
+            label = {"sym": "symmetric_gcn (flagship, Amazon-Book width)",
+                     "oh1": "OneHotMatrix 1 (G9's DNN, round-3 set)",
+                     "tr": "the transformer (G7, round-3 set)"}[tag]
+            p50 = float(np.median([ms for r in ranks
+                                   for ms in r["step_ms"][1:]]))
+            launches["fused_adamw"][f"{tag}_{mesh[0]}x{mesh[1]}"] = [
+                r["launches"] for r in ranks]
+            extra = (f"; key bias (rounding noise) within "
+                     f"{max(r['noise_lr'] for r in ranks):.3f} lr of one "
+                     f"process" if noise else "")
+            log(f"serve mesh {mesh} {label}: {MESH_STEPS} steps of 400, TF32"
+                f" off, losses {ranks[0]['losses']} (single-process {ref}, "
+                f"rtol {MESH_LOSS_RTOL}); parameters within rtol "
+                f"{MESH_PARAMS['rtol']} / atol {MESH_PARAMS['atol']} but for"
+                f" elements at the rounding floor, at most "
+                f"{MESH_EXCUSED_SHARE} of a rank's tensor (largest share "
+                f"{excused:.3g}; [past, at the floor, elements] {counts})"
+                f"{extra}; fused_adamw launches per rank per step "
+                f"{ranks[0]['launches']} = the rank's "
+                f"{ranks[0]['local_tensors']} tensors; step p50 {p50:.1f} ms,"
+                f" peak memory by rank "
+                f"{[round(r['peak_gib'], 2) for r in ranks]} GiB (ranks "
+                f"sharing one card, not a scaling number) [{card}]")
+        log(f"serve mesh phase: worlds {worlds_s:.1f} s, phase "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        launches["dispatch"] = dispatch
+        launches["daemon"] = daemon
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import argparse
 
@@ -3575,6 +4180,8 @@ def main() -> int:
         return http_client(sys.argv[2:])
     if sys.argv[1:2] == ["--mesh-worker"]:   # a rank of phase 19
         return mesh_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--serve-mesh-worker"]:   # a rank of phase 21
+        return serve_mesh_worker(sys.argv[2:])
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="FILE", default=None,
                         help="write torch.profiler tables of 5 lightGCN "
@@ -3594,6 +4201,10 @@ def main() -> int:
                         help="run only phases 5, 6 and 20 (the AdamW "
                              "kernel, the float32 flagship epoch and "
                              "bfloat16 storage with float32 masters)")
+    parser.add_argument("--serve-mesh-phase", action="store_true",
+                        help="run only phase 21 (serving on a mesh of "
+                             "ranks sharing the card, and the options that "
+                             "read across batch rows on a mesh)")
     parser.add_argument("--mesh-diagnostic", action="store_true",
                         help="print what phase 19's parameter limits rest "
                              "on: GEMM rounding by shape, TF32 and planted "
@@ -3627,6 +4238,16 @@ def main() -> int:
         launches = mesh_phase(root, card, torch, power_law_graph(0))
         log(f"mesh launches {json.dumps(launches)}")
         log(f"chip_smoke (phase 19 only): "
+            f"{time.perf_counter() - t_start:.1f} s")
+        log(card)
+        return 0
+    if args.serve_mesh_phase:
+        S.build_kernels()
+        FA.build_kernel()
+        log(card)
+        launches = serve_mesh_phase(root, card, torch, power_law_graph(0))
+        log(f"serve mesh launches {json.dumps(launches)}")
+        log(f"chip_smoke (phase 21 only): "
             f"{time.perf_counter() - t_start:.1f} s")
         log(card)
         return 0
@@ -3807,13 +4428,24 @@ def main() -> int:
                                                        csr)
         entry["launches_bf16_epochs"] = plain_launches
         kernels.append(master_entry)
-        del csr
         log(f"precision phase: {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 21. serving on a mesh; the options that read across batch rows
+        t0 = time.perf_counter()
+        served = serve_mesh_phase(root, card, torch, csr)
+        entry["launches_serve_mesh_steps_by_rank"] = served["fused_adamw"]
+        for k in kernels[:2]:
+            k["launches_serve_mesh_lightgcn_startup_by_rank"] = [
+                r[k["name"]] for r in served["spmm"]]
+        del csr
+        log(f"serve mesh phase: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    # 21. results
-    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of phases 1-20")
+    # 22. results
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of phases 1-21")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -28,8 +28,11 @@ which grows none, cannot serve it).
 On a (dp, mp) mesh the ops that touch a catalog-sharded tensor take their
 mesh forms (``parallel/layers.py``, ``parallel/embed.py``; the same op when
 the tensor is whole). On a dp-sharded batch the trainer draws the whole
-batch's dropout uniforms (``dropout_draws``) and sets ``contrastive_group``,
-so that NT-Xent reads the whole batch's latents.
+batch's dropout uniforms (``dropout_draws``) and sets ``batch_group`` for
+the call, so that each op that reads across batch rows reads the whole
+batch: NT-Xent gathers the latents, the transformer's attention gathers
+keys and values, the symmetric GCN sums its degrees and item products over
+dp.
 """
 
 from __future__ import annotations
@@ -83,6 +86,10 @@ class _Denoiser(nn.Module):
         self.norm = norm
         self.dropout_rate = dropout_rate
         self.emb_layer = linear_init(emb_size, emb_size, generator, device)
+        # the dp group whose blocks make up the batch of the current call
+        # (the trainer sets it around a dp block's forward); None: the rows
+        # are the whole batch
+        self.batch_group = None
 
     def _time(self, t):
         return self.emb_layer(timestep_embedding(t, self.emb_size))
@@ -328,9 +335,6 @@ class DNNOneHotEmbedding(_OneHotInputs):
     needs_index = True
     needs_graph = False
     noise_type = 0   # the tower routing of the GCN subclass; 0 is none
-    # the dp group a training batch is split over (the trainer sets it on
-    # a mesh with dp > 1): NT-Xent then runs over the whole batch
-    contrastive_group = None
 
     def __init__(self, in_dims, out_dims, emb_size: int, n_item: int,
                  n_user: int, generator: torch.Generator, device=None,
@@ -371,11 +375,11 @@ class DNNOneHotEmbedding(_OneHotInputs):
         closs = None
         if rcloss:
             z, z_U = h, h_U
-            if self.contrastive_group is not None:
+            if self.batch_group is not None:
                 # over the whole batch: a dp block gathers the others'
                 # latents (the gradient returns to each block's rows)
-                z = gather_rows(h, self.contrastive_group)
-                z_U = gather_rows(h_U, self.contrastive_group)
+                z = gather_rows(h, self.batch_group)
+                z_U = gather_rows(h_U, self.batch_group)
             closs = nt_xent_loss(z, z_U)
             if routed and self.noise_type != 0:
                 closs = closs * 0.0
@@ -422,8 +426,14 @@ class DNNOneHotEmbeddingGCN(DNNOneHotEmbedding):
         if self.gcn_layer_num == 0:
             return hc
         if self.symmetric_gcn:
+            # every user row reads every item row and the other way round:
+            # on a mesh the item side follows the item table's mp blocks
+            # and the batch's sums run over dp (``gcn_conv_bipartite``)
             g = graph[..., 1].to(hc.dtype)
-            gcn_u, _ = self.gcn(hc, self.embedding_item, g, symmetric=True)
+            gcn_u, _ = self.gcn(hc, self.embedding_item, g, symmetric=True,
+                                batch_group=self.batch_group,
+                                item_shard=shard_of(self.embedding_item),
+                                items=False)
         else:
             # directed graph: the user rows the blend reads ignore it
             gcn_u = layer_gcn_user_rows(self.gcn, hc)
@@ -447,13 +457,19 @@ class EncoderLayer(nn.Module):
     weights, the attention output, the FFN's inner activation and its
     output. ``dropout_u``: uniforms in the JAX package's key order (the
     attention output [B, d], the FFN output [B, d], the attention weights
-    [nhead, B, B], the FFN inner activation [B, d_ff])."""
+    [nhead, B, B], the FFN inner activation [B, d_ff]).
+
+    ``batch_group``: x is a dp block of the batch; its queries attend to
+    the whole batch's keys and values (``gather_rows``, whose backward
+    returns each block its rows' gradient), and its attention-weight
+    uniforms are its [nhead, block, B] rows of the whole batch's."""
 
     def __init__(self, d_model: int, d_ff: int, nhead: int,
                  dropout_rate: float, generator: torch.Generator,
                  device=None):
         super().__init__()
         self.nhead = nhead
+        self.d_model, self.d_ff = d_model, d_ff
         self.dropout_rate = dropout_rate
         self.qkv = Linear(d_model, 3 * d_model, device=device)
         with torch.no_grad():
@@ -469,16 +485,20 @@ class EncoderLayer(nn.Module):
         self.ln2 = LayerNorm(d_model, eps=1e-5, device=device)
 
     def forward(self, x, generator: Optional[torch.Generator] = None,
-                dropout_u: Sequence[torch.Tensor] = ()):
+                dropout_u: Sequence[torch.Tensor] = (), batch_group=None):
         u_ctx, u_ff, u_att, u_inner = tuple(dropout_u) or (None,) * 4
         rate, train = self.dropout_rate, self.training
         b, d = x.shape
         hd = d // self.nhead
 
-        def heads(z):
-            return z.reshape(b, self.nhead, hd).transpose(0, 1)  # [H, B, hd]
+        def heads(z):   # [rows, d] -> [H, rows, hd]
+            return z.reshape(z.shape[0], self.nhead, hd).transpose(0, 1)
 
-        q, k, v = (heads(z) for z in self.qkv(x).chunk(3, dim=-1))
+        q, k, v = self.qkv(x).chunk(3, dim=-1)
+        if batch_group is not None:   # the whole batch's keys and values
+            k, v = gather_rows(torch.cat([k, v], dim=-1),
+                               batch_group).chunk(2, dim=-1)
+        q, k, v = heads(q), heads(k), heads(v)
         att = torch.softmax((q @ k.transpose(1, 2)) / math.sqrt(hd), dim=-1)
         att = dropout(att, rate, train, generator, u_att)
         ctx = self.out((att @ v).transpose(0, 1).reshape(b, d))
@@ -500,10 +520,30 @@ class DNNOneHotTransformer(_OneHotInputs):
     needs_index = False
     needs_graph = False
 
-    def _dropout_widths(self, n):
-        raise NotImplementedError(
-            "DNNOneHotTransformer's dropout includes [nhead, B, B] attention "
-            "weights, which a dp block cannot cut from the whole batch's")
+    def dropout_draws(self, batch_size: int, n: int, generator,
+                      keep=lambda t: t) -> tuple:
+        """The uniforms the forward draws itself, in the order it draws
+        them (x, x_U, then per layer the attention weights, the attention
+        output, the FFN inner activation, the FFN output), returned in
+        ``dropout_u``'s order. ``keep`` cuts the batch rows of each; of the
+        [nhead, B, B] attention weights it cuts the query rows (dim 1), so
+        a dp block keeps all B key columns."""
+        if not self.training or self.dropout_rate == 0.0:
+            return ()
+        dev = self.emb_layer.weight.device
+
+        def draw(*shape):
+            return torch.rand(shape, generator=generator, device=dev)
+
+        out = [keep(draw(batch_size, n)), keep(draw(batch_size, 2 * n))]
+        for layer in list(self.enc1) + list(self.enc2):
+            att = keep(draw(layer.nhead, batch_size, batch_size)
+                       .transpose(0, 1)).transpose(0, 1)
+            ctx = keep(draw(batch_size, layer.d_model))
+            inner = keep(draw(batch_size, layer.d_ff))
+            ff = keep(draw(batch_size, layer.d_model))
+            out += [ctx, ff, att, inner]
+        return tuple(out)
 
     def __init__(self, in_dims, out_dims, emb_size: int,
                  generator: torch.Generator, device=None, norm: bool = False,
@@ -533,7 +573,7 @@ class DNNOneHotTransformer(_OneHotInputs):
         for i, layer in enumerate(layers):
             u = tuple(dropout_u[2 + 4 * i: 6 + 4 * i])
             if i < len(self.enc1):
-                h = layer(h, generator, u)
+                h = layer(h, generator, u, self.batch_group)
             else:
-                h_U = layer(h_U, generator, u)
+                h_U = layer(h_U, generator, u, self.batch_group)
         return mlp_out(self.out_layers, torch.cat([h, h_U], dim=1)), None

@@ -14,42 +14,74 @@ so with the reference's directed edges user rows are graph-independent.
     deg_u     = 1 + sum_i G[u, i]
     user_out  = (X_u W) / deg_u + (G / sqrt(deg_u deg_i)) (X_i W) + b
 
+On a (dp, mp) mesh both sides read across what the mesh splits: G's rows
+are a dp block of the batch, and the item rows an mp block of the catalog
+when the item table is sharded. ``gcn_conv_bipartite`` then sums deg_i and
+the products into the items over dp (``sum_rows``: each block's loss reads
+the whole batch's sums) and the products into the users over mp
+(``sum_over``); the conv's weight and bias enter the item side through
+``copy_to``, so their item-side gradient sums over the mp blocks.
+
 ``mean_aggregation`` and ``mini_lightgcn_apply`` are the reference's
 parameter-free aggregation alternative; no backbone calls them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from gdmcf_torch.models.layers import gcn_conv_init, promote
+from gdmcf_torch.parallel.collectives import (all_reduce, copy_to, sum_over,
+                                              sum_rows)
 
 
 def gcn_conv_bipartite(conv: nn.Linear, h_users: torch.Tensor,
                        h_items: torch.Tensor, g: torch.Tensor,
-                       symmetric: bool = False
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       symmetric: bool = False, batch_group=None,
+                       item_shard=None, items: bool = True
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One GCNConv over the bipartite batch graph; returns (users, items).
-    h_users [B, D], h_items [N, D], g [B, N] binary."""
+    h_users [B, D], h_items [N, D], g [B, N] binary. ``items`` False skips
+    the item rows' output (None), which a last layer's caller never reads.
+
+    On a mesh: ``batch_group``, the dp group when h_users and g are a dp
+    block's rows; ``item_shard``, the item table's ``MeshShard`` when
+    h_items is this rank's block of the item rows (g keeps every column)."""
     # a bfloat16 weight (param_dtype) meets float32 rows: promoted, as jnp
     # does; everything after is float32
-    xu = F.linear(*promote(h_users, conv.weight))
-    xi = F.linear(*promote(h_items, conv.weight))
-    deg_i = 1.0 + g.sum(dim=0)
-    if not symmetric:
-        item_out = (xi / deg_i[:, None]
-                    + (g.T @ xu) / torch.sqrt(deg_i)[:, None])
-        user_out = xu
+    w, b = conv.weight, conv.bias
+    xu = F.linear(*promote(h_users, w))
+    deg_u = 1.0 + g.sum(dim=1) if symmetric else None
+    w_i, b_i, xu_i = w, b, xu
+    if item_shard is not None:
+        lo = item_shard.index * h_items.shape[0]
+        g = g[:, lo:lo + h_items.shape[0]]
+        w_i, b_i, xu_i = (copy_to(t, item_shard.group) for t in (w, b, xu))
+    xi = F.linear(*promote(h_items, w_i))
+    cols = g.sum(dim=0)
+    deg_i = 1.0 + (cols if batch_group is None
+                   else all_reduce(cols, batch_group))
+    if symmetric:
+        g = g * torch.rsqrt(deg_u)[:, None] * torch.rsqrt(deg_i)[None, :]
+        to_users = g @ xi
+        if item_shard is not None:
+            to_users = sum_over(to_users, item_shard.group)
+        user_out = xu / deg_u[:, None] + to_users
     else:
-        deg_u = 1.0 + g.sum(dim=1)
-        norm_g = g * torch.rsqrt(deg_u)[:, None] * torch.rsqrt(deg_i)[None, :]
-        item_out = xi / deg_i[:, None] + norm_g.T @ xu
-        user_out = xu / deg_u[:, None] + norm_g @ xi
-    return user_out + conv.bias, item_out + conv.bias
+        user_out = xu
+    item_out = None
+    if items:
+        to_items = g.T @ xu_i
+        if batch_group is not None:
+            to_items = sum_rows(to_items, batch_group)
+        if not symmetric:
+            to_items = to_items / torch.sqrt(deg_i)[:, None]
+        item_out = xi / deg_i[:, None] + to_items + b_i
+    return user_out + b, item_out
 
 
 def _act(h: torch.Tensor) -> torch.Tensor:
@@ -72,11 +104,18 @@ class LayerGCN(nn.Module):
             self.conv1 = gcn_conv_init(in_ch, hidden_ch, generator, device)
             self.conv2 = gcn_conv_init(hidden_ch, out_ch, generator, device)
 
-    def forward(self, h_users, h_items, g, symmetric: bool = False):
-        u, i = gcn_conv_bipartite(self.conv1, h_users, h_items, g, symmetric)
-        if self.num_layers == 2:
+    def forward(self, h_users, h_items, g, symmetric: bool = False,
+                batch_group=None, item_shard=None, items: bool = True):
+        """(users, items) of the stack; ``items`` False: the last layer's
+        item rows are not computed (None). The mesh keywords as
+        ``gcn_conv_bipartite``'s."""
+        mesh = dict(batch_group=batch_group, item_shard=item_shard)
+        two = self.num_layers == 2
+        u, i = gcn_conv_bipartite(self.conv1, h_users, h_items, g, symmetric,
+                                  items=items or two, **mesh)
+        if two:
             u, i = gcn_conv_bipartite(self.conv2, _act(u), _act(i), g,
-                                      symmetric)
+                                      symmetric, items=items, **mesh)
         return u, i
 
 

@@ -16,6 +16,10 @@ them. The backward of each op follows from that:
   gather_rows(x)     forward: all-gather along dim 0. backward: all-reduce
                      sum of the gradient, then this rank's block (each rank
                      computes its own loss from the gathered rows).
+  sum_rows(x)        forward: all-reduce sum of each dp block's sum over
+                     its rows. backward: all-reduce sum (each block's loss
+                     reads the whole batch's sum, so a block's part takes
+                     every block's gradient).
 
 Only all-reduce and all-gather are used. Under NCCL a CUDA tensor goes on
 the wire as it is; under gloo (CPU ranks, or several ranks sharing one
@@ -118,6 +122,17 @@ class _GatherRows(torch.autograd.Function):
         return g[lo:lo + ctx.rows].contiguous(), None
 
 
+class _SumRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
 def sum_over(x: torch.Tensor, group) -> torch.Tensor:
     return _SumOver.apply(x, group)
 
@@ -132,3 +147,7 @@ def gather_from(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     return _GatherRows.apply(x, group)
+
+
+def sum_rows(x: torch.Tensor, group) -> torch.Tensor:
+    return _SumRows.apply(x, group)

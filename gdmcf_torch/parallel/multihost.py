@@ -13,8 +13,8 @@ group (its mp ranks hold the same rows), so ``local_row_range`` shards by
 the dp coordinate.
 
 Backends: ``nccl`` for CUDA ranks, ``gloo`` for CPU ranks. ``backend="gloo"``
-runs CUDA ranks over gloo, which is what several ranks sharing one card need
-(NCCL refuses two ranks on one device).
+(or env DIST_BACKEND=gloo) runs CUDA ranks over gloo, which is what several
+ranks sharing one card need (NCCL refuses two ranks on one device).
 """
 
 from __future__ import annotations
@@ -26,6 +26,9 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+
+# the process group's collective timeout in seconds (initialize sets it)
+_TIMEOUT_S: Optional[float] = None
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -42,8 +45,9 @@ def initialize(coordinator_address: Optional[str] = None,
     NUM_PROCESSES, PROCESS_ID. ``heartbeat_timeout_s`` (env
     HEARTBEAT_TIMEOUT_S) becomes the process group's timeout: a collective
     waiting on a dead peer raises after it instead of hanging; without it
-    the timeout is ``timeout_s``. ``backend`` defaults to nccl for a
-    ``device`` of cuda and gloo for cpu."""
+    the timeout is ``timeout_s``. ``backend`` (env DIST_BACKEND) defaults
+    to nccl for a ``device`` of cuda and gloo for cpu."""
+    global _TIMEOUT_S
     coordinator_address = coordinator_address or os.environ.get(
         "COORDINATOR_ADDRESS")
     if coordinator_address is None:
@@ -62,13 +66,29 @@ def initialize(coordinator_address: Optional[str] = None,
         os.environ.get("PROCESS_ID", "0"))
     if heartbeat_timeout_s is None and os.environ.get("HEARTBEAT_TIMEOUT_S"):
         heartbeat_timeout_s = int(os.environ["HEARTBEAT_TIMEOUT_S"])
+    backend = backend or os.environ.get("DIST_BACKEND")
     if backend is None:
         backend = "gloo" if str(device).startswith("cpu") else "nccl"
+    _TIMEOUT_S = float(heartbeat_timeout_s or timeout_s)
     dist.init_process_group(
         backend, init_method=f"tcp://{coordinator_address}",
         world_size=num_processes, rank=process_id,
-        timeout=timedelta(seconds=heartbeat_timeout_s or timeout_s))
+        timeout=timedelta(seconds=_TIMEOUT_S))
     return True
+
+
+def collective_timeout_s() -> float:
+    """How long a collective waits for a peer before it raises: the
+    process group's timeout (torch's default of 300 s for a group that
+    ``initialize`` did not start)."""
+    return 300.0 if _TIMEOUT_S is None else _TIMEOUT_S
+
+
+def shutdown() -> None:
+    """Destroy the process group, if one is running: a rank that leaves
+    without it can abort at exit while the group's threads still run."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def process_count() -> int:

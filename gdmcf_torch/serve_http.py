@@ -25,6 +25,15 @@ Run:  python -m gdmcf_torch.serve_http -c configs/amazonOneEmbGcn.yaml \
           --device cuda --data_path DIR --ckpt_dir_serve CK --port 8080
       (--procs N: N pre-forked fronts, see ``serve_front``; --device cpu
       serves from the CPU)
+
+On a (dp, mp) mesh every rank runs this command (``--mesh_dp D --mesh_mp
+M``, one process per rank under COORDINATOR_ADDRESS / NUM_PROCESSES /
+PROCESS_ID; DIST_BACKEND=gloo and ``--device cuda:0`` for ranks that share
+one card). The main rank owns the socket, the coalescer and the fronts;
+the other ranks run ``Recommender.follow``. SIGHUP to the main rank is a
+reload of every rank, SIGTERM stops every rank (each exits 0), and a rank
+that loses the main rank exits non-zero once the process group's timeout
+(HEARTBEAT_TIMEOUT_S) passes.
 """
 
 from __future__ import annotations
@@ -46,6 +55,25 @@ class _Waiter:
         self.error: Exception | None = None
 
 
+class _Call:
+    """A function queued to run on the dispatcher thread (``call``)."""
+
+    __slots__ = ("fn", "done", "result", "error")
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.done = threading.Event()
+        self.result = None
+        self.error: Exception | None = None
+
+    def run(self) -> None:
+        try:
+            self.result = self.fn()
+        except Exception as e:   # re-raised on the caller's thread
+            self.error = e
+        self.done.set()
+
+
 class Coalescer:
     """Packs concurrent recommend() requests into shared padded dispatches.
 
@@ -53,19 +81,49 @@ class Coalescer:
     rows, runs ONE :meth:`Recommender.recommend_batch`, and distributes row
     slices back. Oversized requests are split into serve_batch-sized
     waiters at submit time and reassembled.
+
+    Over a mesh recommender the same thread issues every collective of the
+    main rank: the recommender's reloads and its stop come through this
+    queue (``call``, set as the recommender's ``ordered``), in order with
+    the dispatches, and while no work comes for ``heartbeat_s`` it sends a
+    heartbeat, so the other ranks' wait for an op never reaches the
+    process group's timeout.
     """
 
     def __init__(self, recommender):
         self.rec = recommender
         self._cv = threading.Condition()
         from collections import deque
-        self._pending: "deque[_Waiter]" = deque()  # O(1) FIFO popleft
+        # waiters and calls, O(1) FIFO popleft
+        self._pending: "deque[_Waiter | _Call]" = deque()
         # observability: served request/row/dispatch counters (/healthz)
         self.stats = {"requests": 0, "rows": 0, "dispatches": 0,
-                      "coalesced": 0}
+                      "coalesced": 0, "heartbeats": 0}
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="gdmcf-serve-dispatch")
+        if recommender.channel is not None:
+            recommender.ordered = self.call
         self._thread.start()
+
+    def call(self, fn):
+        """Run ``fn`` on the dispatcher thread, queued behind the work
+        already pending; returns its result or raises its error. On the
+        dispatcher thread itself it runs at once."""
+        if threading.current_thread() is self._thread:
+            return fn()
+        c = _Call(fn)
+        with self._cv:
+            self._pending.append(c)
+            self._cv.notify()
+        c.done.wait()
+        if c.error is not None:
+            raise c.error
+        return c.result
+
+    def close(self) -> None:
+        """Stop a mesh recommender's other ranks, after the work queued
+        before (a no-op on one process)."""
+        self.rec.stop()
 
     def submit(self, users, k: int, exclude: bool):
         """Blocking: returns the [n, k] item matrix for this request.
@@ -99,12 +157,20 @@ class Coalescer:
             parts.append(w.result[:, :k])
         return np.concatenate(parts, axis=0)
 
-    def _take_batch(self) -> list[_Waiter]:
+    def _take_batch(self):
+        """The next work: the FIFO prefix of waiters that fits one dispatch,
+        a queued ``_Call``, or None when a mesh recommender has been idle
+        for its ``heartbeat_s``."""
+        beat = self.rec.heartbeat_s()
         with self._cv:
             while not self._pending:
-                self._cv.wait()
+                if not self._cv.wait(timeout=beat):
+                    return None
+            if isinstance(self._pending[0], _Call):
+                return self._pending.popleft()
             batch, room = [], self.rec.serve_batch
-            while self._pending and self._pending[0].users.size <= room:
+            while (self._pending and isinstance(self._pending[0], _Waiter)
+                   and self._pending[0].users.size <= room):
                 batch.append(self._pending.popleft())
                 room -= batch[-1].users.size
             return batch
@@ -112,6 +178,17 @@ class Coalescer:
     def _loop(self):
         while True:
             batch = self._take_batch()
+            if batch is None or isinstance(batch, _Call):
+                try:
+                    if batch is None:
+                        self.rec.heartbeat()
+                        self.stats["heartbeats"] += 1
+                    else:
+                        batch.run()
+                except Exception as e:   # a lost rank: requests now fail
+                    print(f"heartbeat failed: {type(e).__name__}: {e}",
+                          flush=True)
+                continue
             # EVERYTHING after take is guarded: this is the sole dispatcher
             # thread, and an unguarded failure (a MemoryError in the
             # concatenates) would kill it silently, wedging every queued
@@ -249,10 +326,19 @@ def main(argv=None):
     rec = build_recommender(cfg, ns.ckpt_dir_serve or cfg.ckpt_dir, train,
                             n_user, n_item, serve_batch=ns.serve_batch,
                             k_max=ns.k_max)
+    from gdmcf_torch.parallel.multihost import shutdown
+
+    if not rec.is_main:
+        # a mesh rank: the main rank's ops until its stop; it exits
+        # non-zero once it loses the main rank
+        rec.follow()
+        shutdown()
+        return
 
     # an operator reloads without knowing the HTTP port: SIGHUP restores
     # from the configured checkpoint directory, off the signal frame (the
-    # restore reads the disk; traffic never pauses)
+    # restore reads the disk; traffic never pauses; on a mesh the reload
+    # joins the dispatcher's queue)
     def _on_sighup(signum, frame):
         def _do():
             try:
@@ -288,6 +374,8 @@ def main(argv=None):
                     p.wait(timeout=10)
                 except Exception:
                     pass
+            backend.coalescer.close()
+            shutdown()
         return
     srv = make_server(rec, ns.host, ns.port)
     print(f"serving on http://{ns.host}:{srv.server_address[1]} (device "
@@ -296,6 +384,8 @@ def main(argv=None):
         srv.serve_forever()
     finally:
         srv.server_close()
+        srv.coalescer.close()   # a mesh's other ranks stop too
+        shutdown()
 
 
 if __name__ == "__main__":

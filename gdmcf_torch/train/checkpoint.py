@@ -17,7 +17,8 @@ On a (dp, mp) mesh the format is the same: ``save`` is collective (the
 main rank's mp group gathers the whole of each sharded tensor, and only the
 main rank copies the state to the host and writes), and
 ``restore`` is collective too (every rank reads the whole tensors and
-keeps its blocks). A checkpoint of a mesh run restores into a
+keeps its blocks); ``load_params`` (a server's read) returns a rank's
+blocks without a collective. A checkpoint of a mesh run restores into a
 single-device run and the other way round. The directory must be visible
 to every rank (one host, or a shared filesystem).
 """
@@ -227,16 +228,36 @@ class Checkpointer:
         template.step = int(data["step"])
         return template
 
-    def load_params(self, step: Optional[int] = None):
+    def load_params(self, step: Optional[int] = None,
+                    shards: Optional[Dict[str, object]] = None):
         """(step, {name: parameter}) of a checkpoint, the parameters alone
         as host tensors mapped from the file (``mmap``): the moments,
-        stored beside them, are never read. What a server reloads."""
+        stored beside them, are never read. What a server reloads.
+
+        ``shards``: {name: MeshShard or None} of a mesh rank's parameters
+        (``shard_of`` of each); a sharded parameter comes back as this
+        rank's block (a view of the mapped file, the placement ``restore``
+        keeps), after a check that the whole tensor divides into the
+        rank's blocks."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         data = torch.load(self._path(step), map_location="cpu",
                           weights_only=True, mmap=True)
-        return int(data["step"]), data["params"]
+        params = data["params"]
+        for name, shard in (shards or {}).items():
+            if shard is None or name not in params:
+                continue
+            src = params[name]
+            if (src.ndim <= shard.dim
+                    or src.shape[shard.dim] % shard.count):
+                raise ValueError(
+                    f"checkpoint tensor {name} is {src.dtype} "
+                    f"{tuple(src.shape)}: it does not cut into {shard.count}"
+                    f" blocks along dim {shard.dim} (saved under another "
+                    "geometry or config)")
+            params[name] = local_block(src, shard)
+        return int(data["step"]), params
 
     def close(self) -> None:
         self.wait()   # a deferred sidecar must not die with the object

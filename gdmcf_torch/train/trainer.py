@@ -40,7 +40,11 @@ same kernel) updates each rank's own blocks. Evaluation batches are
 dp-sharded (each dp group scores its block and the metric sums are reduced
 bit-exactly at the end) unless ``eval_replicated``; the top-k is
 shard-local and merged over mp. Only the main rank logs and writes
-checkpoints; every rank restores them.
+checkpoints; every rank restores them. Every option runs on a mesh: ops
+that read across batch rows (NT-Xent, the transformer's attention, the
+symmetric GCN's sums) read the whole batch while the model runs a block
+(``_rows_of``), and OneHotMatrix 1 shards the rows of the whole batch's
+block adjacency over dp (``_onehot_rows``).
 """
 
 from __future__ import annotations
@@ -99,26 +103,6 @@ def _rank_device(device) -> torch.device:
     return dev
 
 
-def _check_mesh_supported(cfg) -> None:
-    """The options whose mesh form is not ported (ROADMAP.md §A item 9,
-    what waits)."""
-    dp = cfg.mesh_dp
-    if cfg.OneHotMatrix == 1:
-        raise NotImplementedError(
-            "OneHotMatrix=1 on a mesh (the block input spans the batch) is "
-            "not ported yet: ROADMAP.md §A item 9, what waits")
-    if cfg.symmetric_gcn:
-        raise NotImplementedError(
-            "symmetric_gcn on a mesh (the GCN reads the whole item table "
-            "and the batch's degrees) is not ported yet: ROADMAP.md §A item "
-            "9, what waits")
-    if dp > 1 and cfg.backbone == "DNNOneHotTransformer":
-        raise NotImplementedError(
-            "DNNOneHotTransformer on a dp-sharded batch (its attention runs "
-            "across batch rows) is not ported yet: ROADMAP.md §A item 9, "
-            "what waits")
-
-
 class Trainer:
     def __init__(self, cfg, n_user: int, n_item: int, train_csr=None,
                  device=None):
@@ -133,7 +117,6 @@ class Trainer:
             # exactly; nothing runs quietly on one rank
             from gdmcf_torch.parallel.mesh import make_mesh
 
-            _check_mesh_supported(cfg)
             self.device = _rank_device(device)
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
@@ -154,8 +137,6 @@ class Trainer:
             from gdmcf_torch.parallel.sharding import shard_params
 
             self.placements = shard_params(self.model, self.mesh)
-            if self._dp() > 1 and hasattr(self.model, "contrastive_group"):
-                self.model.contrastive_group = axis_group(self.mesh, "dp")
         self.model.eval()
         if cfg.noise_scale == 0.0 and getattr(self.model, "needs_graph",
                                               False):
@@ -205,6 +186,17 @@ class Trainer:
         i = axis_index(self.mesh, "dp")
         return RowBlock(i * block, (i + 1) * block, block * dp,
                         axis_group(self.mesh, "dp"))
+
+    @contextlib.contextmanager
+    def _rows_of(self, block: Optional[RowBlock]):
+        """The model's forward within runs on ``block``'s rows of a
+        dp-sharded batch (None: the whole batch): its ops that read across
+        batch rows read the whole batch through ``batch_group``."""
+        self.model.batch_group = None if block is None else block.group
+        try:
+            yield
+        finally:
+            self.model.batch_group = None
 
     def _put_batch(self, x: np.ndarray, idx: np.ndarray,
                    replicate: bool = False):
@@ -278,13 +270,39 @@ class Trainer:
         return x.float()
 
     @staticmethod
-    def _to_block_onehot(x: torch.Tensor) -> torch.Tensor:
-        """OneHotMatrix 1: the [B, n] rows as the upper-right block of a
-        [B + n, B + n] adjacency (the reference's adjacency_to_one_hot)."""
+    def _to_block_onehot(x: torch.Tensor, lo: int = 0,
+                         hi: Optional[int] = None) -> torch.Tensor:
+        """OneHotMatrix 1: rows ``lo:hi`` (default all) of the [B + n,
+        B + n] adjacency whose upper-right block is the [B, n] rows (the
+        reference's adjacency_to_one_hot)."""
         b, n = x.shape
-        y = x.new_zeros((b + n, b + n))
-        y[:b, b:] = x
+        hi = b + n if hi is None else hi
+        y = x.new_zeros((hi - lo, b + n))
+        users = x[lo:max(min(hi, b), lo)]
+        y[:users.shape[0], b:] = users
         return y
+
+    def _onehot_rows(self, x: torch.Tensor, index: torch.Tensor,
+                     block: Optional[RowBlock]):
+        """OneHotMatrix 1: (the rows of the block adjacency this rank
+        runs, the batch's ids, their ``RowBlock`` or None). Each row of the
+        [B + n, B + n] adjacency spans every batch row's columns, so a dp
+        block of B/dp user rows gathers the whole batch over dp and keeps
+        its contiguous (B + n)/dp rows of the adjacency; when dp does not
+        divide B + n every rank runs the whole adjacency (None), as the
+        JAX package's ``compatible_spec`` replicates a dimension the axis
+        does not divide."""
+        if block is None:
+            return self._to_block_onehot(x), index, None
+        x, index = block.gather(x), block.gather(index)
+        total = x.shape[0] + x.shape[1]
+        dp = self._dp()
+        if total % dp:
+            return self._to_block_onehot(x), index, None
+        i, rows = axis_index(self.mesh, "dp"), total // dp
+        rows_of = RowBlock(i * rows, (i + 1) * rows, total, block.group)
+        return (self._to_block_onehot(x, rows_of.lo, rows_of.hi), index,
+                rows_of)
 
     # -- training ----------------------------------------------------------
     def loss_and_grads(self, state: TrainState, x: torch.Tensor,
@@ -295,19 +313,19 @@ class Trainer:
         the new LtState). Changes nothing in ``state`` except its
         generator's position."""
         x = self._unpack(x.to(self.device))
+        index = index.to(self.device).long()
+        block = self.row_block(x.shape[0])
         if self.cfg.OneHotMatrix == 1 and x.shape[-1] == self.n_item:
             # a caller may pass the block already ([B + n, B + n])
-            x = self._to_block_onehot(x)
-        index = index.to(self.device).long()
+            x, index, block = self._onehot_rows(x, index, block)
         self.model.train()
         names = list(state.params)
-        block = self.row_block(x.shape[0])
         if block is not None and draws is None:
             # the whole batch's draws, as one device would draw them
             draws = self.diffusion.train_draws(
                 state.lt, block.total, x.shape[1], state.generator,
                 model=self.model, keep=block.cut)
-        with matmul_precision(self.tf32):
+        with matmul_precision(self.tf32), self._rows_of(block):
             loss_vec, new_lt, _ = self.diffusion.training_losses(
                 self.model, x, index, state.lt, reweight=self.cfg.reweight,
                 generator=state.generator, draws=draws, block=block)
@@ -439,25 +457,34 @@ class Trainer:
 
         ``return_scores`` also returns the masked scores before top-k.
         ``block``: x is this rank's ``row_block`` of a dp-sharded batch;
-        ``draws``, if given, are its rows of the whole batch's."""
+        ``draws``, if given, are its rows of the whole batch's. Under
+        OneHotMatrix 1 a block runs its rows of the whole batch's block
+        adjacency (``_onehot_rows``) and the scores are gathered over dp
+        before this block's user rows are ranked."""
         self.model.eval()
         x = self._unpack(x)
         mask = self._unpack(mask)
         onehot_block = self.cfg.OneHotMatrix == 1
-        if block is not None and draws is None:
+        rows, ids, run = x, index, block
+        if onehot_block:
+            rows, ids, run = self._onehot_rows(x, index, block)
+        if run is not None and draws is None:
             # the whole batch's draws, as one device would draw them
             draws = self.diffusion.p_sample_draws(
-                block.total, x.shape[1], sampling_steps,
-                self.cfg.sampling_noise, generator, x.device, keep=block.cut)
-        with matmul_precision(self.tf32):
+                run.total, rows.shape[1], sampling_steps,
+                self.cfg.sampling_noise, generator, x.device, keep=run.cut)
+        with matmul_precision(self.tf32), self._rows_of(run):
             scores = self.diffusion.p_sample(
-                self.model, self._to_block_onehot(x) if onehot_block else x,
-                index, sampling_steps=sampling_steps,
+                self.model, rows, ids, sampling_steps=sampling_steps,
                 sampling_noise=self.cfg.sampling_noise, generator=generator,
-                draws=draws, block=block)
+                draws=draws, block=run)
         if onehot_block:
-            b = x.shape[0]
+            if run is not None:   # the whole adjacency's scores
+                scores = run.gather(scores)
+            b = ids.shape[0]
             scores = scores.masked_fill(scores <= 0.1, 0.0)[:b, b:]
+            if block is not None:   # this block's users
+                scores = scores[block.lo:block.hi]
         scores = scores.masked_fill(mask > 0, float("-inf"))
         n = scores.shape[1]
         mp = axis_size(self.mesh, "mp")

@@ -11,6 +11,7 @@ raises within the heartbeat timeout instead of hanging).
 Exact comparisons throughout: specs, ranges, ids and draws are discrete.
 """
 
+import json
 import os
 import socket
 import subprocess
@@ -230,7 +231,8 @@ def rows_x(b=8, n=20, seed=1):
 
 @pytest.mark.parametrize("backbone,variant", [
     ("DNN", "discrete"), ("DNNOneHotEmbeddingGCN", "discrete"),
-    ("DNNOneHot", "legacy"), ("DNNOneHotEmbedding", "ablation")])
+    ("DNNOneHot", "legacy"), ("DNNOneHotEmbedding", "ablation"),
+    ("DNNOneHotTransformer", "discrete")])
 @pytest.mark.parametrize("filled", [False, True])
 def test_train_draws_are_the_draws_training_losses_makes(backbone, variant,
                                                          filled):
@@ -302,10 +304,42 @@ def test_a_block_without_its_draws_is_refused():
                                     block=block)
     with pytest.raises(ValueError, match="p_sample_draws"):
         t.diffusion.p_sample(t.model, x, idx, 0, block=block)
+    # the transformer's draws, once refused for a block, are cut like any
+    # model's; a block without them is refused like any model's
     tr = draw_trainer("DNNOneHotTransformer", "discrete")
     tr.model.train()
-    with pytest.raises(NotImplementedError, match="attention"):
-        tr.model.dropout_draws(8, 20, torch.Generator())
+    assert len(tr.model.dropout_draws(8, 20, torch.Generator(),
+                                      keep=block.cut)) == 2 + 4 * 4
+    with pytest.raises(ValueError, match="train_draws"):
+        tr.diffusion.training_losses(tr.model, x, idx, TE.LtState.create(5),
+                                     block=block)
+
+
+def test_a_transformer_block_keeps_the_query_rows_of_the_attention_draws():
+    """Of the [nhead, B, B] attention-weight uniforms a dp block keeps its
+    query rows and every key column; every other draw its batch rows; the
+    whole draws are those the forward makes itself, in its order."""
+    t = draw_trainer("DNNOneHotTransformer", "discrete")
+    model = t.model
+    model.train()
+    block = RowBlock(4, 8, 12, None)
+    g1, g2, g3 = (torch.Generator().manual_seed(5) for _ in range(3))
+    whole = model.dropout_draws(12, 20, g1)
+    part = model.dropout_draws(12, 20, g2, keep=block.cut)
+    for i, (w, p) in enumerate(zip(whole, part)):
+        if w.ndim == 3:   # (ctx, ff, att, inner) per layer: att is 4 + 4k
+            assert i % 4 == 0 and p.shape == (2, 4, 12)
+            assert torch.equal(p, w[:, 4:8])
+        else:
+            assert torch.equal(p, w[4:8])
+    x = rows_x(12)
+    xu = torch.stack([1.0 - x, x], dim=-1)
+    ts = torch.arange(12) % 5
+    with torch.no_grad():
+        want, _ = model(x, ts, xu, generator=g3)
+        got, _ = model(x, ts, xu, dropout_u=whole)
+    assert torch.equal(got, want)
+    assert torch.equal(g1.get_state(), g3.get_state())
 
 
 # ---------------------------------------------------------------------------
@@ -360,14 +394,53 @@ def test_a_mesh_config_without_its_world_raises(mesh):
                          mesh_mp=mesh[1]), 4, 6)
 
 
-@pytest.mark.parametrize("kw", [dict(OneHotMatrix=1),
+@pytest.mark.parametrize("kw", [dict(OneHotMatrix=1, backbone="DNN"),
                                 dict(symmetric_gcn=True),
                                 dict(backbone="DNNOneHotTransformer")])
-def test_mesh_options_that_wait_name_their_roadmap_item(kw):
-    from gdmcf_torch.train.trainer import _check_mesh_supported
+def test_mesh_options_that_wait_name_their_roadmap_item(kw, tmp_path):
+    """The three options that once waited for ROADMAP.md §A item 9 (each
+    reads across batch rows) now run on a mesh: two train steps of a
+    (2, 1) world of gloo ranks (``MODE=option``) on their own draws equal
+    two single-process steps from the same seed, under the own-draws rule
+    of tests/test_torch_serve_mesh.py (the loss within rtol 1e-5, every
+    parameter within rtol 1e-4 / atol 1e-6 but for elements whose
+    gradient is rounding noise or whose bfloat16 moments rounded apart)."""
+    cfg = dict(dims=[16], emb_size=10, steps=5, noise_scale=0.01,
+               batch_size=8, lr=1e-3, random_seed=2, **kw)
+    n_user, n_item = 24, 20
+    rng = np.random.default_rng(6)
+    inp = {}
+    for s in range(2):
+        inp[f"x{s}"] = (rng.random((8, n_item)) < 0.3).astype(np.float32)
+        inp[f"i{s}"] = rng.choice(n_user, 8, replace=False).astype(np.int64)
+    np.savez(tmp_path / "inputs.npz", **inp)
+    (tmp_path / "inputs.json").write_text(json.dumps(dict(
+        mesh=[2, 1], cfg=cfg, steps=2, n_user=n_user, n_item=n_item)))
+    port = _free_port()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   NUM_PROCESSES="2", PROCESS_ID=str(rank), MODE="option",
+                   WORK_DIR=str(tmp_path), PYTHONPATH=str(ROOT),
+                   OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(WORKER)], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, (rank, out[-3000:])
+    from test_torch_serve_mesh import assert_own_steps
 
-    with pytest.raises(NotImplementedError, match="§A item 9"):
-        _check_mesh_supported(TConfig(device="cpu", mesh_dp=2, **kw))
+    assert_own_steps(
+        TTrainer(TConfig(device="cpu", **cfg), n_user, n_item),
+        [(inp[f"x{s}"], inp[f"i{s}"]) for s in range(2)],
+        json.loads((tmp_path / "rank0.json").read_text())["losses"],
+        dict(np.load(tmp_path / "rank0.npz")), f"{kw} on (2, 1)")
 
 
 def test_kernel_wrappers_refuse_a_dtensor():

@@ -38,8 +38,8 @@ def test_the_parallel_modules_are_among_those_checked():
     neither JAX nor the JAX package either."""
     parallel = {m for m in MODULES if m.startswith("gdmcf_torch.parallel")}
     assert parallel == {f"gdmcf_torch.parallel{s}" for s in (
-        "", ".collectives", ".embed", ".layers", ".mesh", ".multihost",
-        ".rows", ".sharding")}
+        "", ".channel", ".collectives", ".embed", ".layers", ".mesh",
+        ".multihost", ".rows", ".sharding")}
 
 
 def test_pretraining_names_import_without_jax():

@@ -6,7 +6,10 @@ NUM_PROCESSES, PROCESS_ID), on the CPU. ``WORK_DIR`` holds ``inputs.npz``
 and ``inputs.json`` written by the test; each rank writes
 ``rank<r>.npz`` (rank 0: the whole tensors) and ``rank<r>.json`` (checks
 and small results) there. ``MODE=dead_peer`` runs the failure-detection
-check instead.
+check instead; ``MODE=serve`` (tests/test_torch_serve_mesh.py) a mesh
+``Recommender`` and, on (2, 1), the options that read across batch rows;
+``MODE=option`` (tests/test_torch_parallel.py) two train steps of one such
+option.
 
 Imports torch and the port only.
 """
@@ -74,9 +77,273 @@ def dead_peer():
     os._exit(0)
 
 
+def cut_train_draws(d, lo, hi, rows_lo, rows_hi, attention):
+    """This rank's rows of whole-batch train draws held as arrays
+    (``d_tsu``, ``d_corrupt``, ``d_ts``, ``d_noise``, ``d_drop<i>``):
+    ``lo:hi`` of the batch, or ``rows_lo:rows_hi`` of a OneHotMatrix 1
+    block adjacency; ``attention``: the indices of the dropout draws whose
+    rows are dim 1 (the transformer's [nhead, B, B] weights)."""
+    from gdmcf_torch.diffusion.engine import TimestepDraws, TrainDraws
+
+    a, b = (rows_lo, rows_hi) if rows_lo is not None else (lo, hi)
+
+    def rows(x):
+        return None if x is None else t_(x[a:b])
+
+    def ts(x):
+        return None if x is None else TimestepDraws(rows(x), rows(x))
+
+    drops, i = [], 0
+    while f"d_drop{i}" in d:
+        u = d[f"d_drop{i}"]
+        drops.append(t_(u[:, a:b]) if i in attention else t_(u[a:b]))
+        i += 1
+    return TrainDraws(ts_u=ts(d.get("d_tsu")), corrupt_u=rows(
+        d.get("d_corrupt")), ts=ts(d["d_ts"]), noise=rows(d["d_noise"]),
+        dropout=tuple(drops))
+
+
+def option_steps(cfg, n_user, n_item, weights, batches, draws, mesh):
+    """Steps of a Trainer on this rank's dp blocks of ``batches`` [(x,
+    idx)], from ``weights`` (whole tensors; None: the seeded init), with
+    ``draws`` (whole-batch arrays per step; None: its own); returns
+    (losses, whole parameters and AdamW moments ("mu.<name>",
+    "nu.<name>"), the trainer)."""
+    from gdmcf_torch.parallel.sharding import full_tensor, shard_of
+    from gdmcf_torch.train.trainer import Trainer
+
+    import torch.distributed as dist
+
+    dp, mp = mesh
+    t = Trainer(cfg, n_user, n_item)
+    if weights is not None:
+        load_full_state(t.model, weights)
+    state = t.init_state()
+    b = cfg.batch_size // dp
+    d_i = dist.get_rank() // mp
+    lo, hi = d_i * b, (d_i + 1) * b
+    total = cfg.batch_size + n_item
+    rows = total // dp
+    losses = []
+    for s, (x, idx) in enumerate(batches):
+        d = None
+        if draws is not None:
+            oh1 = cfg.OneHotMatrix == 1
+            att = {2 + 4 * k + 2 for k in range(8)} \
+                if cfg.backbone == "DNNOneHotTransformer" else set()
+            d = cut_train_draws(draws[s], lo, hi,
+                                d_i * rows if oh1 else None,
+                                (d_i + 1) * rows if oh1 else None, att)
+        state, loss = t.train_step(state, t_(x[lo:hi]), t_(idx[lo:hi]),
+                                   draws=d)
+        losses.append(float(loss))
+    whole = {k: full_tensor(p).detach().numpy().copy()
+             for k, p in state.params.items()}
+    for which in ("mu", "nu"):
+        for k, m in getattr(state.opt_state, which).items():
+            whole[f"{which}.{k}"] = full_tensor(
+                m, shard_of(state.params[k])).float().numpy().copy()
+    return losses, whole, t
+
+
+def option_world():
+    """MODE=option: two train steps of OPTION on its own draws; rank 0
+    writes the losses and the whole parameters."""
+    work = os.environ["WORK_DIR"]
+    multihost.initialize(device="cpu")
+    import torch.distributed as dist
+
+    from gdmcf_torch.config import Config
+
+    inp = dict(np.load(os.path.join(work, "inputs.npz")))
+    meta = json.load(open(os.path.join(work, "inputs.json")))
+    dp, mp = meta["mesh"]
+    cfg = Config(device="cpu", mesh_dp=dp, mesh_mp=mp, **meta["cfg"])
+    batches = [(inp[f"x{s}"], inp[f"i{s}"]) for s in range(meta["steps"])]
+    losses, params, _ = option_steps(cfg, meta["n_user"], meta["n_item"],
+                                     None, batches, None, (dp, mp))
+    if dist.get_rank() == 0:
+        np.savez(os.path.join(work, "rank0.npz"), **params)
+        with open(os.path.join(work, "rank0.json"), "w") as fh:
+            json.dump({"losses": losses}, fh)
+    multihost.sync_hosts()
+    dist.destroy_process_group()
+
+
+def serve_world():
+    """MODE=serve: mesh Recommenders over the dispatch plans of the test
+    (rank 0 runs each plan and stops, the others follow), the scores of
+    the first dispatch, and on (2, 1) the options that read across batch
+    rows. ``MESH`` is "dp,mp"; every rank writes
+    ``serve_<dp>x<mp>_rank<r>.json``, rank 0 ``serve_<dp>x<mp>.npz``."""
+    import scipy.sparse as sp
+
+    work = os.environ["WORK_DIR"]
+    dp, mp = (int(v) for v in os.environ["MESH"].split(","))
+    multihost.initialize(device="cpu")
+    import torch.distributed as dist
+
+    from gdmcf_torch.config import Config
+    from gdmcf_torch.parallel.collectives import all_gather_list
+    from gdmcf_torch.serve import Recommender
+    from gdmcf_torch.train.checkpoint import Checkpointer
+    from gdmcf_torch.train.trainer import Trainer
+
+    rank = dist.get_rank()
+    inp = dict(np.load(os.path.join(work, "inputs.npz")))
+    meta = json.load(open(os.path.join(work, "inputs.json")))
+    n_user, n_item = meta["n_user"], meta["n_item"]
+    train = sp.csr_matrix(inp["train"])
+    weights = {k[2:]: v for k, v in inp.items() if k.startswith("w.")}
+    res, out = {}, {}
+    sb, k_max = meta["serve_batch"], meta["k_max"]
+
+    def cfg(**kw):
+        return Config(device="cpu", mesh_dp=dp, mesh_mp=mp,
+                      **dict(meta["cfg"], **kw))
+
+    def run(rec, plan, tag):
+        if rec.is_main:
+            got = []
+            for step in plan:
+                if step[0] == "reload":
+                    info = rec.reload_params(os.path.join(work, step[1]))
+                    got.append(info["params_version"])
+                else:
+                    got.append(rec.recommend_batch(
+                        np.asarray(step[1]), np.asarray(step[2])).tolist())
+            rec.stop()
+            res[tag] = got
+        else:
+            rec.follow()
+        res[tag + "_version"] = rec.params_version
+
+    def first_scores(rec, tag):
+        """Every rank: the first dispatch's scores at the generator's first
+        state, this rank's dp block gathered (as ``_dispatch`` runs it)."""
+        _, users, excl = meta["plan_b"][0]
+        padded = np.zeros(sb, np.int64)
+        padded[:len(users)] = users
+        flags = np.zeros(sb, bool)
+        flags[:len(users)] = excl
+        t = rec.trainer
+        block = (t.row_block(sb // dp) if t._eval_shardable(sb) else None)
+        lo, hi = (0, sb) if block is None else (block.lo, block.hi)
+        rows, mask = rec._rows(padded[lo:hi], flags[lo:hi])
+        gen = torch.Generator().manual_seed(t.cfg.random_seed + 777)
+        _, scores = t.eval_step(t_(rows), t_(padded[lo:hi]), t_(mask),
+                                sampling_steps=t.cfg.sampling_steps,
+                                top_k=k_max, generator=gen,
+                                return_scores=True, block=block)
+        if block is not None:
+            scores = torch.cat(all_gather_list(scores, block.group))
+        out[tag + "_scores"] = scores.numpy()
+
+    def check(name, fn):
+        print(f"rank {rank}: {name}", flush=True)
+        try:
+            fn()
+            res[name] = True
+        except Exception:
+            res[name] = "ERROR " + traceback.format_exc()[-2000:]
+            raise
+
+    def mesh_checkpoint():
+        t = Trainer(cfg(), n_user, n_item)
+        load_full_state(t.model, weights)
+        state = t.init_state()
+        b = t.cfg.batch_size // dp
+        lo = (rank // mp) * b
+        state, _ = t.train_step(state, t_(inp["ck_x"][lo:lo + b]),
+                                t_(inp["ck_i"][lo:lo + b]))
+        Checkpointer(os.path.join(work, "mesh_ckpt")).save(state)
+
+    def recommenders():
+        rec = Recommender.from_state(Trainer(cfg(), n_user, n_item), weights,
+                                     train, serve_batch=sb, k_max=k_max)
+        first_scores(rec, "fresh")
+        run(rec, meta["plan_a"], "fresh")
+        for tag in ("single_ckpt", "mesh_ckpt"):
+            run(Recommender.from_checkpoint(
+                cfg(), os.path.join(work, tag), train, serve_batch=sb,
+                k_max=k_max), meta["plan_b"], tag)
+        rec = Recommender.from_state(
+            Trainer(cfg(sampling_steps=0), n_user, n_item), weights, train,
+            serve_batch=sb, k_max=k_max)
+        first_scores(rec, "jax")
+        run(rec, meta["plan_b"], "jax")
+
+    def lightgcn():
+        t = Trainer(cfg(**meta["lgn_cfg"]), n_user, n_item, train_csr=train)
+        res["lgn_local_user"] = list(t.model.frozen_lgn_user.shape)
+        run(Recommender.from_state(t, None, train, serve_batch=sb,
+                                   k_max=k_max), meta["plan_b"], "lgn")
+
+    def options():
+        batches = [(inp[f"ox{s}"], inp[f"oi{s}"]) for s in range(3)]
+        for name, kw in meta["options"].items():
+            ocfg = cfg(**kw)
+            w = {k[len(name) + 3:]: v for k, v in inp.items()
+                 if k.startswith(f"o.{name}.")}
+            draws = [{k.split(".", 3)[3]: v for k, v in inp.items()
+                      if k.startswith(f"od.{name}.{s}.")} for s in range(3)]
+            # the eval step at the JAX weights, before any step
+            t = Trainer(ocfg, n_user, n_item)
+            load_full_state(t.model, w)
+            x, idx = inp["ex"], inp["ei"]
+            b = ocfg.batch_size // dp
+            lo = (rank // mp) * b
+            block = t.row_block(b)
+            ev = None
+            if f"oe.{name}.sprinkle0" in inp:   # the JAX sampler's draws
+                from gdmcf_torch.diffusion.engine import PSampleDraws
+                steps = ocfg.steps
+                ev = PSampleDraws(
+                    None, None,
+                    [t_(inp[f"oe.{name}.sprinkle{i}"][lo:lo + b])
+                     for i in range(steps)],
+                    [t_(inp[f"oe.{name}.gate{i}"][lo:lo + b])
+                     for i in range(steps)], [])
+            gen = torch.Generator().manual_seed(11)
+            ids, scores = t.eval_step(
+                t_(x[lo:lo + b]), t_(idx[lo:lo + b]), t_(x[lo:lo + b]),
+                sampling_steps=ocfg.sampling_steps, top_k=k_max,
+                generator=gen, draws=ev, return_scores=True, block=block)
+            out[f"{name}.eval_ids"] = torch.cat(
+                all_gather_list(ids, block.group)).numpy()
+            out[f"{name}.eval_scores"] = torch.cat(
+                all_gather_list(scores, block.group)).numpy()
+            for tag, wt, dr in (("jax", w, draws), ("own", None, None)):
+                losses, params, _ = option_steps(ocfg, n_user, n_item, wt,
+                                                 batches, dr, (dp, mp))
+                res[f"{name}.{tag}_losses"] = losses
+                out.update({f"{name}.{tag}.{k}": v
+                            for k, v in params.items()})
+
+    if (dp, mp) == (2, 2):
+        check("mesh_checkpoint", mesh_checkpoint)
+    multihost.sync_hosts()
+    check("recommenders", recommenders)
+    if (dp, mp) == (1, 2):
+        check("lightgcn", lightgcn)
+    if (dp, mp) == (2, 1):
+        check("options", options)
+    if rank == 0:
+        np.savez(os.path.join(work, f"serve_{dp}x{mp}.npz"), **out)
+    with open(os.path.join(work, f"serve_{dp}x{mp}_rank{rank}.json"),
+              "w") as fh:
+        json.dump(res, fh)
+    multihost.sync_hosts()
+    dist.destroy_process_group()
+
+
 def main():
     if os.environ.get("MODE") == "dead_peer":
         return dead_peer()
+    if os.environ.get("MODE") == "option":
+        return option_world()
+    if os.environ.get("MODE") == "serve":
+        return serve_world()
     work = os.environ["WORK_DIR"]
     multihost.initialize(device="cpu")
     import torch.distributed as dist
