@@ -121,7 +121,12 @@ Phases (any failure exits non-zero):
      DNNOneHotEmbedding at sampling_steps 2 (100 epochs), G9 DNN at
      OneHotMatrix 1 (tail loss against the reference, final R@20/N@20
      against the JAX package's runs in docs/parity_data/jax_oh1.json,
-     split per seed) and DNNOneHotEmbeddingGCN_conti; on AMAZON_GATE_SET
+     split per seed, and the verdict of record: each seed's final raw
+     scores, dumped as gdmcf_torch.parity_run --dump-scores does, ranked
+     by the unchanged benchmarks/oh1_neutral_eval.py's neutral_metrics,
+     the tie-neutral test R@20 and N@20 of every seed inside its band of
+     the reference's values in docs/parity_data/oh1_neutral_result.json)
+     and DNNOneHotEmbeddingGCN_conti; on AMAZON_GATE_SET
      the Amazon recipe (flagship, batch 400, dims [1024], lr 5e-5,
      noise_scale 1e-4, 120 epochs, 1,200 users); each written to
      chiprun_out/torch_<gate>.json;
@@ -223,12 +228,40 @@ Phases (any failure exits non-zero):
      exact arithmetic, within 2 lr a step), one AdamW launch per rank per
      step for each of the rank's tensors; step p50 and peak memory by
      rank, not scaling numbers;
- 22. the kernel JSON line, the card's name and power limit, and as the
+ 22. recovery from a killed process, each training process `python -m
+     gdmcf_torch.cli` as a user runs it, instrumented by this script
+     (--fault-cli): (a) the flagship (configs/amazonOneEmbGcn.yaml) at the
+     Amazon-Book width on phase 9's splits written as .npy, host_dense
+     false, a periodic checkpoint every epoch (about 5.6 GB), SIGKILLed
+     once the epoch-1 checkpoint has committed and the epoch-2 .tmp- file
+     is growing; resumed with --resume true: the committed step restored,
+     every tensor bitwise equal to the file read on the host, one epoch
+     with a finite loss and 13 K1 launches a step, then K1 held against
+     adamw_reference on the state's 13 tensors (phase 5's bounds); killed
+     again between the epoch-2 commit and its sidecar; resumed again, its
+     restore held bitwise as before, up to its first step (13 K1
+     launches, a finite loss); the write's wall time, what each kill left
+     on disk and the relaunch to the first resumed step printed; (b) the
+     flagship in float32 at the round-3 set on (2,2), four CLI ranks
+     sharing the card over gloo with HEARTBEAT_TIMEOUT_S 30: rank 3
+     SIGKILLs itself at the top of epoch 3 once the epoch-2 checkpoint has
+     committed, every survivor exits non-zero within the heartbeat timeout
+     plus 15 s without an epoch-3 result (they see the dead rank's sockets
+     close; the timeout itself, which a rank that stops without dying
+     leaves them to, is tested on the CPU in tests/test_torch_fault.py);
+     the gang restarts, every rank restores epoch 2 bitwise (its blocks),
+     trains epochs 3-4 and reports the same evaluation; (d) debug_nans on
+     the flagship at the Amazon-Book width: a NaN planted in
+     a parameter raises FloatingPointError at the loss, an infinite
+     gradient raises after K1's 13 launches naming the tensor, the flag
+     off neither raises; clean step p50 with the flag off and on;
+ 23. the kernel JSON line, the card's name and power limit, and as the
      last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --mesh-phase     # phase 19 alone, no JSON line
     python3 chip_smoke.py --serve-mesh-phase
                                            # phase 21 alone, no JSON line
+    python3 chip_smoke.py --fault-phase    # phase 22 alone, no JSON line
     python3 chip_smoke.py --precision-phase
                                            # phases 5, 6 and 20 alone: the
                                            # float32 epoch, then the
@@ -355,6 +388,11 @@ BACKBONE_GATES = (
      dict(backbone="DNNOneHotEmbeddingGCN_conti", **ROUND3), 150,
      "ref_DNNOneHotEmbeddingGCN_conti_s*.json", None),
 )
+
+
+# G9's verdict of record: its final raw scores ranked tie-neutrally
+# (docs/PARITY.md, benchmarks/oh1_neutral_eval.py)
+OH1_NEUTRAL_GATE = "G9_oh1"
 
 
 def log(*a):
@@ -1104,72 +1142,118 @@ def parity_refs(root, pattern):
     return refs
 
 
-def run_gate(root, card, torch, label, data_dir, epochs, cfg_kw,
-             seeds=GOLDEN_SEEDS):
-    """``seeds`` x ``epochs`` of Trainer.fit at golden_config(seed,
-    epochs, **cfg_kw) on the dataset in ``data_dir``, written to
-    chiprun_out/torch_<label>.json in parity_run.py's JSON shape (fit's
-    metric lines to torch_<label>_fit.log); every step launches K1 once per
-    trainable tensor. Returns (the JSON's path, the K1 launches)."""
+GATE_WORKERS = 3   # a gate's seeds train side by side, a process each
+_GATE_POOL = []
+
+
+def gate_pool():
+    """The processes that train the gates' seeds: spawned at the first
+    gate, kept for the run (``close_gate_pool`` ends them)."""
+    if not _GATE_POOL:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        _GATE_POOL.append(ProcessPoolExecutor(
+            GATE_WORKERS, mp_context=multiprocessing.get_context("spawn")))
+    return _GATE_POOL[0]
+
+
+def close_gate_pool():
+    while _GATE_POOL:
+        _GATE_POOL.pop().shutdown()
+
+
+def gate_seed(card, label, data_dir, epochs, cfg_kw, seed, dump_dir):
+    """One seed of a gate, in a process of ``gate_pool``: ``epochs`` of
+    Trainer.fit at golden_config(seed, epochs, **cfg_kw), every step
+    launching K1 once per trainable tensor. Returns the run in
+    parity_run.py's JSON shape, the K1 launches, the log line and fit's
+    metric lines."""
+    import io
+
+    import torch
+
     from gdmcf_torch.data.loader import data_load_dir
     from gdmcf_torch.ops import fused_adamw as FA
+    from gdmcf_torch.parity_run import final_scores
     from gdmcf_torch.train.trainer import Trainer
 
     train, valid, test, n_user, n_item = data_load_dir(data_dir)
-    out_dir = os.path.join(root, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
-    fit_log = os.path.join(out_dir, f"torch_{label}_fit.log")
-    open(fit_log, "w").close()
-    runs, launches = [], 0
-    for seed in seeds:
-        cfg = golden_config(seed, epochs, **cfg_kw)
-        n_rows = min(n_user, cfg.n_user_cap)
-        trainer = Trainer(cfg, n_rows, n_item)
-        col = Collector()
-        FA.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        # fit prints its metric lines; they go to the log file
-        with open(fit_log, "a") as fh, contextlib.redirect_stdout(fh):
-            state, best = trainer.fit(train, valid, test, log=print,
-                                      metric_logger=col)
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
-        n_leaves = len(state.params)
-        got = FA.LAUNCHES["fused_adamw"]
-        assert state.step == epochs * (n_rows // cfg.batch_size), state.step
-        assert got == n_leaves * state.step, (got, n_leaves, state.step)
-        launches += got
-        assert len(col.losses) == epochs
-        assert all(np.isfinite(col.losses)), f"a {label} loss is not finite"
-        last = col.evals[max(col.evals)]["test"]
-        tail = float(np.mean(col.losses[-epochs // 4:]))
-        log(f"{label} seed {seed}: {cfg.backbone} OneHotMatrix "
+    cfg = golden_config(seed, epochs, **cfg_kw)
+    n_rows = min(n_user, cfg.n_user_cap)
+    trainer = Trainer(cfg, n_rows, n_item)
+    col = Collector()
+    FA.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit_lines = io.StringIO()
+    with contextlib.redirect_stdout(fit_lines):
+        state, best = trainer.fit(train, valid, test, log=print,
+                                  metric_logger=col)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    n_leaves = len(state.params)
+    got = FA.LAUNCHES["fused_adamw"]
+    assert state.step == epochs * (n_rows // cfg.batch_size), state.step
+    assert got == n_leaves * state.step, (got, n_leaves, state.step)
+    assert len(col.losses) == epochs
+    assert all(np.isfinite(col.losses)), f"a {label} loss is not finite"
+    last = col.evals[max(col.evals)]["test"]
+    tail = float(np.mean(col.losses[-epochs // 4:]))
+    if dump_dir is not None:
+        np.save(os.path.join(dump_dir, f"{label}.s{seed}.npy"),
+                final_scores(trainer, train, n_rows))
+    line = (f"{label} seed {seed}: {cfg.backbone} OneHotMatrix "
             f"{cfg.OneHotMatrix}, {n_rows} x {n_item}, {epochs} epochs, "
             f"{state.step} steps in {elapsed:.2f} s ({elapsed / epochs * 1e3:.1f}"
-            f" ms per epoch with the evaluations); final test R@20 "
-            f"{last[1][1]} N@20 {last[2][1]}, tail loss {tail:.4f}; "
-            f"fused_adamw launches {got} = {n_leaves} x {state.step} steps "
-            f"[{card}]")
-        runs.append({
-            "seed": seed, "losses": col.losses,
-            "evals": [{"epoch": e, **ev} for e, ev in sorted(col.evals.items())],
-            "best_test": ([[float(v) for v in g] for g in best] if best
-                          else None),
-            "elapsed_s": round(elapsed, 1)})
-        del trainer, state
-        gc.collect()
-        torch.cuda.empty_cache()
+            f" ms per epoch with the evaluations, {GATE_WORKERS} seeds side "
+            f"by side); final test R@20 {last[1][1]} N@20 {last[2][1]}, tail "
+            f"loss {tail:.4f}; fused_adamw launches {got} = {n_leaves} x "
+            f"{state.step} steps [{card}]")
+    run = {"seed": seed, "losses": col.losses,
+           "evals": [{"epoch": e, **ev} for e, ev in sorted(col.evals.items())],
+           "best_test": ([[float(v) for v in g] for g in best] if best
+                         else None),
+           "elapsed_s": round(elapsed, 1)}
+    backbone = cfg.backbone
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run, got, line, fit_lines.getvalue(), backbone
+
+
+def run_gate(root, card, label, data_dir, epochs, cfg_kw,
+             seeds=GOLDEN_SEEDS, dump_dir=None):
+    """``seeds`` x ``epochs`` of Trainer.fit at golden_config(seed,
+    epochs, **cfg_kw) on the dataset in ``data_dir``, the seeds side by
+    side in ``gate_pool`` (``gate_seed``), written to
+    chiprun_out/torch_<label>.json in parity_run.py's JSON shape (fit's
+    metric lines to torch_<label>_fit.log, seed after seed). ``dump_dir``:
+    each seed's final raw score matrix (``parity_run.final_scores``, the
+    ``--dump-scores`` protocol) goes to ``dump_dir/<label>.s<seed>.npy``.
+    Returns (the JSON's path, the K1 launches)."""
+    out_dir = os.path.join(root, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    pool = gate_pool()
+    futures = [pool.submit(gate_seed, card, label, data_dir, epochs, cfg_kw,
+                           seed, dump_dir) for seed in seeds]
+    runs, launches = [], 0
+    with open(os.path.join(out_dir, f"torch_{label}_fit.log"), "w") as fh:
+        for f in futures:
+            run, got, line, fit_lines, backbone = f.result()
+            fh.write(fit_lines)
+            log(line)
+            runs.append(run)
+            launches += got
     ours = os.path.join(out_dir, f"torch_{label}.json")
     with open(ours, "w") as fh:
-        json.dump({"config": dict(cfg_kw, backbone=cfg.backbone,
+        json.dump({"config": dict(cfg_kw, backbone=backbone,
                                   epochs=epochs,
                                   seeds=list(seeds), device=card),
                    "runs": runs}, fh)
     return ours, launches
 
 
-def golden_phase(root, card, torch, data_dir):
+def golden_phase(root, card, data_dir):
     """Phase 8: 3 seeds x 150 epochs of the flagship recipe through
     Trainer.fit, judged by benchmarks/golden_parity.py."""
     from gdmcf_torch.data.loader import data_load_dir
@@ -1178,7 +1262,7 @@ def golden_phase(root, card, torch, data_dir):
     log(f"golden data: generate_synthetic_dataset(seed=0): {n_user} users x "
         f"{n_item} items, {train.nnz} train / {valid.nnz} valid / "
         f"{test.nnz} test edges; n_user_cap 3000")
-    ours, launches = run_gate(root, card, torch, "flagship", data_dir,
+    ours, launches = run_gate(root, card, "flagship", data_dir,
                               GOLDEN_EPOCHS, {})
     assert launches == len(GOLDEN_SEEDS) * 13 * 2 * GOLDEN_EPOCHS, launches
     verdict = golden_parity(root, ours, parity_refs(root,
@@ -1964,14 +2048,55 @@ def judge_gate(root, tmp, label, ours, pattern, jax):
     return verdict
 
 
-def backbone_gates_phase(root, card, torch, golden_dir):
+def neutral_gate(root, card, data_dir, dumps):
+    """G9's verdict of record: each seed's final raw scores ranked by the
+    unchanged ``side`` of benchmarks/oh1_neutral_eval.py (its top level
+    imports numpy alone; the splits come from the port's ``data_load_dir``,
+    never the comparator's ``load_data``), its tie-neutral test R@20 and
+    N@20 inside ``band`` (tolerance 1.0) of the reference's per-seed values
+    in docs/parity_data/oh1_neutral_result.json; the band of that file's
+    other side, the JAX package's recorded runs, is printed beside it."""
+    from gdmcf_torch.data.loader import data_load_dir
+
+    sys.path.insert(0, os.path.join(root, "benchmarks"))
+    try:
+        from oh1_neutral_eval import band, side
+    finally:
+        sys.path.pop(0)
+    with open(os.path.join(root, "docs", "parity_data",
+                           "oh1_neutral_result.json")) as fh:
+        recorded = json.load(fh)
+    # the comparator's output names its two sides "reference" and the
+    # package it judged
+    (jax_side,) = [k for k in recorded
+                   if k not in ("reference", "checks", "parity")]
+    tr, va, te = (m.astype(np.float32).toarray()
+                  for m in data_load_dir(data_dir)[:3])
+    ours = [row["test"][20] for row in side(dumps, tr, va, te)]
+    ok = True
+    for i, name in ((0, "R@20"), (1, "N@20")):
+        ref = band([r["test"]["20"][i] for r in recorded["reference"]], 1.0)
+        jax_band = band([r["test"]["20"][i] for r in recorded[jax_side]],
+                        1.0)
+        vals = [o[i] for o in ours]
+        inside = all(ref[0] <= v <= ref[1] for v in vals)
+        ok = ok and inside
+        log(f"G9 tie-neutral test {name} by seed {vals}: inside the "
+            f"reference's band [{ref[0]:.4f}, {ref[1]:.4f}] {inside} (the "
+            f"JAX package's recorded runs' band [{jax_band[0]:.4f}, "
+            f"{jax_band[1]:.4f}]) [{card}]")
+    return ok
+
+
+def backbone_gates_phase(root, card, golden_dir):
     """Phase 16: the golden gate of every backbone family with reference
     data, and the Amazon-recipe and DNNOneHotEmbeddingGCN_conti gates, each
     judged by the unchanged benchmarks/golden_parity.py against the
     reference's runs, or where BACKBONE_GATES names them with the JAX
     package's recorded runs too (split per seed): G4 against both pooled,
     G9 on tail loss against the reference and on final R@20/N@20 against
-    the JAX package, which breaks ties as the port does. Returns the K1
+    the JAX package, which breaks ties as the port does, and on its
+    tie-neutral verdict of record (``neutral_gate``). Returns the K1
     launches by gate."""
     from gdmcf_torch.data.loader import data_load_dir, generate_synthetic_dataset
 
@@ -1988,11 +2113,20 @@ def backbone_gates_phase(root, card, torch, golden_dir):
         launches, failed = {}, []
         for label, data, cfg_kw, epochs, pattern, jax in BACKBONE_GATES:
             t0 = time.perf_counter()
-            ours, launches[label] = run_gate(root, card, torch, label,
-                                             dirs[data], epochs, cfg_kw)
+            dumps = os.path.join(tmp, f"{label}_scores")
+            neutral = label == OH1_NEUTRAL_GATE
+            if neutral:
+                os.makedirs(dumps)
+            ours, launches[label] = run_gate(
+                root, card, label, dirs[data], epochs, cfg_kw,
+                dump_dir=dumps if neutral else None)
             if judge_gate(root, tmp, label, ours, pattern,
                           jax)["parity"] is not True:
                 failed.append(label)
+            if neutral and not neutral_gate(
+                    root, card, dirs[data],
+                    sorted(glob.glob(os.path.join(dumps, "*.npy")))):
+                failed.append(f"{label} (tie-neutral)")
             log(f"gate {label}: {time.perf_counter() - t0:.1f} s, "
                 f"fused_adamw launches {launches[label]}")
     finally:
@@ -2443,7 +2577,7 @@ def http_phase(root, card, torch, csr):
     return summary, launches["lightGCN"]
 
 
-def variant_gates_phase(root, card, torch, data_dir):
+def variant_gates_phase(root, card, data_dir):
     """Phase 18: the legacy and ablation golden gates (3 seeds x 150
     epochs of DNN at OneHotMatrix 0, parity_run.py's recipe on the phase-8
     set), judged by the unchanged benchmarks/golden_parity.py against
@@ -2456,7 +2590,7 @@ def variant_gates_phase(root, card, torch, data_dir):
         for variant, pattern, jax in VARIANT_GATES:
             t0 = time.perf_counter()
             ours, gates[variant] = run_gate(
-                root, card, torch, f"variant_{variant}", data_dir,
+                root, card, f"variant_{variant}", data_dir,
                 GOLDEN_EPOCHS, dict(VARIANT_RECIPE, diffusion_variant=variant))
             if judge_gate(root, tmp, variant, ours, pattern,
                           jax)["parity"] is not True:
@@ -2539,7 +2673,7 @@ def fresh_seed_gates(root, card, torch):
         data = os.path.join(tmp, "round3")
         generate_synthetic_dataset(data, **ROUND3_GATE_SET)
         label, _, cfg_kw, epochs, pattern, (name, _) = BACKBONE_GATES[3]
-        ours, launches = run_gate(root, card, torch, f"{label}_fresh", data,
+        ours, launches = run_gate(root, card, f"{label}_fresh", data,
                                   epochs, cfg_kw, seeds=FRESH_G4_SEEDS)
         refs = parity_refs(root, pattern)
         alone = golden_parity(root, ours, refs)
@@ -2582,7 +2716,7 @@ def precision_pairs(root, card, torch):
                  "ref_legacy_s*.json", GOLDEN_SEEDS)):
             tails = {}
             for dtype in ("bfloat16", "float32"):
-                ours, _ = run_gate(root, card, torch, f"{label}_{dtype}",
+                ours, _ = run_gate(root, card, f"{label}_{dtype}",
                                    sets[data], GOLDEN_EPOCHS,
                                    dict(cfg_kw, compute_dtype=dtype),
                                    seeds=seeds)
@@ -4083,19 +4217,22 @@ def serve_mesh_phase(root, card, torch, csr):
             f"{opt_ref['tr']}; lightGCN and two flagship checkpoints served"
             f" ({time.perf_counter() - t0:.1f} s)")
 
-        # the worlds: lightGCN (1,2) beside the round-3 options (2,1), then
-        # each (2,2) world alone: the flagship served in this script's
-        # ranks (its dispatches timed), symmetric_gcn, the daemon
+        # the worlds: lightGCN (1,2), the round-3 options (2,1) and
+        # symmetric_gcn (2,2) side by side (none of them timed but for step
+        # times that are not scaling numbers), then each timed (2,2) world
+        # alone: the flagship served in this script's ranks (its
+        # dispatches timed), the daemon
         t0 = time.perf_counter()
         first = [("lightgcn", (1, 2), tmp, start_serve_world(
                       "lightgcn", 1, 2, tmp)),
                  ("options", OPTION_MESH, r3, start_serve_world(
-                     "options", *OPTION_MESH, r3))]
-        lgn, opts = (finish_world(kind, *m, d, p) for kind, m, d, p in first)
+                     "options", *OPTION_MESH, r3)),
+                 ("sym", SERVE_MESH, tmp, start_serve_world(
+                     "sym", *SERVE_MESH, tmp))]
+        lgn, opts, sym = (finish_world(kind, *m, d, p)
+                          for kind, m, d, p in first)
         flag = finish_world("flagship", *SERVE_MESH, tmp, start_serve_world(
             "flagship", *SERVE_MESH, tmp))
-        sym = finish_world("sym", *SERVE_MESH, tmp, start_serve_world(
-            "sym", *SERVE_MESH, tmp))
         daemon = serve_mesh_daemon(root, card, tmp, data_dir, ck, ck_next,
                                    refs, s_users)
         worlds_s = time.perf_counter() - t0
@@ -4173,6 +4310,611 @@ def serve_mesh_phase(root, card, torch, csr):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase 22: recovery from a killed process, one process at the Amazon-Book
+# width and a (dp, mp) mesh of ranks sharing the card; debug_nans on the card
+FAULT_EPOCHS = 3               # the one-process CLI: epochs 1-3 asked
+FAULT_MESH = (2, 2)
+FAULT_MESH_EPOCHS = 4          # the mesh: killed at the top of epoch 3
+FAULT_HEARTBEAT_S = 30         # HEARTBEAT_TIMEOUT_S of the mesh's ranks
+FAULT_PROC_TIMEOUT = 420       # a phase-22 process is killed past it
+
+
+def fault_emit(**kw):
+    """One phase-22 event, a JSON line appended to the process's file
+    FAULT_EVENTS (its log holds the CLI's output and the native
+    libraries' warnings, which may break into a line)."""
+    with open(os.environ["FAULT_EVENTS"], "a") as fh:
+        fh.write(json.dumps(kw) + "\n")
+
+
+def fault_events(log_path):
+    """The events of the process that logs to ``log_path``."""
+    path = log_path + ".events"
+    if not os.path.exists(path):
+        return []
+    with open(path) as fh:   # a line still being written has no "\n"
+        return [json.loads(ln) for ln in fh.read().split("\n")[:-1]]
+
+
+def k1_on_state(FA, torch, state, lr):
+    """K1 held against adamw_reference as in phase 5, on clones of the
+    state's tensors with a seeded gradient: (largest error, elements over
+    update_bounds). Its launches are comparisons, not the path's."""
+    gen = torch.Generator(state.opt_state.count.device).manual_seed(22)
+    count = state.opt_state.count + 1
+    c = FA.step_scalars(count, lr)
+    worst, over = 0.0, 0
+    for name, param in state.params.items():
+        p = param.detach().clone()
+        mu = state.opt_state.mu[name].clone()
+        nu = state.opt_state.nu[name].clone()
+        g = 1e-3 * torch.randn(p.shape, generator=gen, device=p.device)
+        want = FA.adamw_reference(p, g, mu, nu, c)
+        bounds = FA.update_bounds(p, g, mu, nu, c)
+        FA.adamw_update_(p, g, mu, nu, c)
+        torch.cuda.synchronize()
+        e, o = leaf_errors((p, mu, nu), want, bounds)
+        worst, over = max(worst, e), over + o
+        del p, mu, nu, g, want, bounds
+    return worst, over
+
+
+def fault_cli(argv) -> int:
+    """A training process of phase 22 (``--fault-cli`` + the CLI's own
+    flags): ``gdmcf_torch.cli.main`` as a user runs it, instrumented
+    through the environment. FAULT_STEPS: steps an epoch; FAULT_KILL_EPOCH
+    E: at the top of epoch E, once the periodic checkpoint of epoch E - 1
+    has committed in FAULT_CKPT, SIGKILL this process; FAULT_K1: after each
+    epoch hold K1 against its plain version on the state's tensors;
+    FAULT_STOP: exit 0 once the first step has run. Events
+    go out as ``fault_emit`` lines: the checkpoint snapshot and write, the
+    restore (held bitwise against the file on the host), the first step
+    (wall clock), each epoch (steps, K1 launches, loss), the evaluations."""
+    import signal
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gdmcf_torch import cli
+    from gdmcf_torch.config import parse_args
+    from gdmcf_torch.ops import fused_adamw as FA
+    from gdmcf_torch.parallel.multihost import process_index
+    from gdmcf_torch.parallel.sharding import local_block, shard_of
+    from gdmcf_torch.train import checkpoint as C
+    from gdmcf_torch.train.trainer import Trainer
+
+    spe = int(os.environ["FAULT_STEPS"])
+    kill_epoch = int(os.environ.get("FAULT_KILL_EPOCH", "0"))
+    ckpt_dir = os.environ["FAULT_CKPT"]
+    k1 = os.environ.get("FAULT_K1") == "1"
+    stop = os.environ.get("FAULT_STOP") == "1"
+    seen = {"first": False}
+
+    save, write, restore = (C.Checkpointer.save, C.Checkpointer._write,
+                            C.Checkpointer.restore)
+
+    def timed_save(self, state, step=None, extra=None, block=True):
+        t0 = time.perf_counter()
+        save(self, state, step, extra, block)
+        fault_emit(event="save", rank=process_index(), step=state.step,
+                   block=block, s=time.perf_counter() - t0)
+
+    def timed_write(self, step, payload):
+        t0 = time.perf_counter()
+        write(self, step, payload)
+        fault_emit(event="committed", step=step, t=time.time(),
+                   write_s=time.perf_counter() - t0,
+                   error=repr(self._error) if self._error else None)
+
+    def checked_restore(self, template, step=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = restore(self, template, step)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        data = torch.load(self._path(out.step), map_location="cpu",
+                          weights_only=True, mmap=True)
+        opt, n = out.opt_state, 0
+        for key, live in (("params", out.params), ("mu", opt.mu),
+                          ("nu", opt.nu), ("master", opt.master or {})):
+            for name, t in live.items():
+                src = data[key][name]
+                shard = shard_of(out.params[name])
+                if shard is not None:
+                    src = local_block(src, shard)
+                assert torch.equal(t.detach().cpu(), src), (key, name)
+                n += 1
+        for name, a, b in (("count", opt.count, data["count"]),
+                           ("lt_history", out.lt.history, data["lt_history"]),
+                           ("lt_count", out.lt.count, data["lt_count"]),
+                           ("generator", out.generator.get_state(),
+                            data["generator"])):
+            assert torch.equal(a.cpu(), b), name
+            n += 1
+        assert out.step == int(data["step"])
+        fault_emit(event="restore", rank=process_index(), step=out.step,
+                   epoch=out.step // spe, tensors=n, restore_s=t1 - t0,
+                   check_s=time.perf_counter() - t1,
+                   path=os.path.relpath(self._path(out.step), ckpt_dir))
+        return out
+
+    step = Trainer.train_step
+
+    def first_step(self, *a, **kw):
+        out = step(self, *a, **kw)
+        if not seen["first"]:
+            torch.cuda.synchronize()
+            seen["first"] = True
+            fault_emit(event="first_step", rank=process_index(),
+                       step=out[0].step, t=time.time(),
+                       loss=float(out[1]),
+                       launches=FA.LAUNCHES["fused_adamw"])
+            if stop:
+                fault_emit(event="done", rank=process_index())
+                os._exit(0)
+        return out
+
+    train_epoch = Trainer.train_epoch
+
+    def epoch_hook(self, state, dataset, rng):
+        epoch = state.step // spe + 1
+        if epoch == kill_epoch:
+            path = os.path.join(ckpt_dir, "periodic",
+                                f"ckpt_{(epoch - 1) * spe}.pt")
+            deadline = time.time() + 120
+            while not os.path.exists(path) and time.time() < deadline:
+                time.sleep(0.05)
+            fault_emit(event="kill", rank=process_index(), epoch=epoch,
+                       t=time.time(), committed=os.path.exists(path))
+            os.kill(os.getpid(), signal.SIGKILL)
+        FA.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = train_epoch(self, state, dataset, rng)
+        torch.cuda.synchronize()
+        ev = dict(event="epoch", rank=process_index(), epoch=epoch,
+                  steps=state.step - (epoch - 1) * spe,
+                  launches=FA.LAUNCHES["fused_adamw"], loss=loss,
+                  s=time.perf_counter() - t0, tensors=len(state.params))
+        if k1:
+            ev["k1_max_abs_err"], ev["k1_over"] = k1_on_state(
+                FA, torch, state, self.cfg.lr)
+        fault_emit(**ev)
+        return state, loss
+
+    evaluate = Trainer.evaluate
+
+    def eval_hook(self, *a, **kw):
+        out = evaluate(self, *a, **kw)
+        fault_emit(event="eval", rank=process_index(),
+                   results=[list(map(float, g)) for g in out])
+        return out
+
+    C.Checkpointer.save = timed_save
+    C.Checkpointer._write = timed_write
+    C.Checkpointer.restore = checked_restore
+    Trainer.train_step = first_step
+    Trainer.train_epoch = epoch_hook
+    Trainer.evaluate = eval_hook
+    cli.main(parse_args(argv))
+    fault_emit(event="done", rank=process_index())
+    return 0
+
+
+def fault_start(root, args, log_path, env=None):
+    """Start one ``--fault-cli`` process writing to ``log_path``."""
+    logf = open(log_path, "w")
+    p = subprocess.Popen(
+        [sys.executable, os.path.join(root, "chip_smoke.py"), "--fault-cli",
+         *args], cwd=root,
+        env=dict(os.environ, PYTHONPATH=root, FAULT_EVENTS=log_path +
+                 ".events", **(env or {})),
+        stdout=logf, stderr=subprocess.STDOUT)
+    logf.close()
+    return p
+
+
+def fault_fail(msg, logs):
+    for path in logs:
+        with open(path) as fh:
+            log(f"--- {os.path.basename(path)}:\n{fh.read()[-4000:]}")
+    raise AssertionError(msg)
+
+
+def on_disk(directory):
+    """[name, bytes] of every file under ``directory``."""
+    out = []
+    for base, _, files in os.walk(directory):
+        for f in sorted(files):
+            path = os.path.join(base, f)
+            out.append([os.path.relpath(path, directory),
+                        os.path.getsize(path)])
+    return sorted(out)
+
+
+def write_amazon_npy(csr, data_dir):
+    """The phase-9 splits of the graph as the CLI's ``{train,valid,
+    test}_list.npy``; the grid's last cell is put in train, so the CLI
+    infers the whole 108,822 x 94,949 grid from it."""
+    import scipy.sparse as sp
+
+    train, valid, test = amazon_splits(csr)
+    corner = sp.csr_matrix(([1.0], ([N_USER - 1], [N_ITEM - 1])),
+                           shape=csr.shape, dtype=np.float32)
+    train = ((train + corner) > 0).astype(np.float32)
+    valid = valid - valid.multiply(train)
+    test = test - test.multiply(train)
+    os.makedirs(data_dir, exist_ok=True)
+    for name, m in (("train", train), ("valid", valid), ("test", test)):
+        coo = m.tocoo()
+        keep = coo.data > 0
+        np.save(os.path.join(data_dir, f"{name}_list.npy"),
+                np.stack([coo.row[keep], coo.col[keep]], 1).astype(np.int64))
+    return train.nnz
+
+
+def fault_one_process(root, card, csr, tmp):
+    """Phase 22 (a): the flagship through ``python -m gdmcf_torch.cli`` at
+    the Amazon-Book width with a periodic checkpoint every epoch, killed in
+    the middle of the epoch-2 write, resumed (K1 held against its plain
+    version after the resumed epoch), killed between the epoch-2 commit and
+    its sidecar, resumed again up to its first step. Returns K1's launches
+    in the resumed epoch and in the last resume's first step, and the
+    relaunch-to-first-step times."""
+    data_dir = os.path.join(tmp, "amazon")
+    nnz = write_amazon_npy(csr, data_dir)
+    ckpt = os.path.join(tmp, "ckpt")
+    periodic = os.path.join(ckpt, "periodic")
+    spe = N_USER // 400
+    flags = ["-c", os.path.join(root, "configs", "amazonOneEmbGcn.yaml"),
+             "--device", "cuda", "--data_path", data_dir, "--dataset",
+             "amazon", "--log_name", os.path.join(tmp, "log"), "--host_dense",
+             "false", "--epochs", str(FAULT_EPOCHS), "--eval_every", "100",
+             "--ckpt_dir", ckpt, "--ckpt_every", "1", "--resume", "true",
+             "--debug", "true"]
+    env = {"FAULT_STEPS": str(spe), "FAULT_CKPT": ckpt}
+    logs = [os.path.join(tmp, f"cli_{i}.log") for i in (1, 2, 3)]
+    log(f"fault (a): {N_USER} x {N_ITEM}, {nnz} train edges written as .npy;"
+        f" python -m gdmcf_torch.cli -c configs/amazonOneEmbGcn.yaml "
+        f"--host_dense false --epochs {FAULT_EPOCHS} --ckpt_every 1 "
+        f"--eval_every 100 --resume true, {spe} steps an epoch")
+
+    # kill 1: the epoch-1 checkpoint has committed and the epoch-2 .tmp-
+    # file is growing
+    t0 = time.time()
+    p = fault_start(root, flags, logs[0], env)
+    tmp_name, sizes = None, []
+    while p.poll() is None and time.time() - t0 < FAULT_PROC_TIMEOUT:
+        names = os.listdir(periodic) if os.path.isdir(periodic) else []
+        grow = [n for n in names if n.startswith(f"ckpt_{2 * spe}.pt.tmp-")]
+        if f"ckpt_{spe}.pt" in names and grow:
+            size = os.path.getsize(os.path.join(periodic, grow[0]))
+            sizes.append(size)
+            if len(sizes) >= 2 and 0 < sizes[-2] < size:
+                p.kill()
+                tmp_name = grow[0]
+                break
+        time.sleep(0.02)
+    p.wait()
+    if tmp_name is None:
+        p.kill()
+        fault_fail("kill 1: the epoch-2 write was never seen growing",
+                   logs[:1])
+    left = on_disk(ckpt)
+    ev1 = fault_events(logs[0])
+    write1 = [e for e in ev1 if e["event"] == "committed"]
+    snap1 = [e for e in ev1 if e["event"] == "save"]
+    assert write1 and write1[0]["step"] == spe and not write1[0]["error"]
+    log(f"fault (a) kill 1: SIGKILL {time.time() - t0:.1f} s after launch, "
+        f"the epoch-2 file growing ({sizes[-2]} -> {sizes[-1]} B); the "
+        f"epoch-1 checkpoint's snapshot {snap1[0]['s']:.2f} s, write "
+        f"{write1[0]['write_s']:.2f} s; left on disk {left} [{card}]")
+    assert [f for f, _ in left if f.endswith(".pt")] == [
+        f"periodic/ckpt_{spe}.pt"]
+
+    def resumed(i, want_step, kill2):
+        # the first resume trains its epoch and holds K1 against its plain
+        # version once; the second stops after its first step
+        t_launch = time.time()
+        p = fault_start(root, flags, logs[i], dict(
+            env, **({"FAULT_K1": "1"} if kill2 else {"FAULT_STOP": "1"})))
+        killed_at = None
+        while p.poll() is None and time.time() - t_launch < \
+                FAULT_PROC_TIMEOUT:
+            if kill2:
+                ev = fault_events(logs[i])
+                if any(e["event"] == "committed" and e["step"] == 2 * spe
+                       for e in ev):
+                    p.kill()
+                    killed_at = time.time()
+                    break
+            time.sleep(0.02)
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+        ev = fault_events(logs[i])
+        if kill2 and killed_at is None:
+            fault_fail("kill 2: the epoch-2 commit was never seen",
+                       logs[i:i + 1])
+        if not kill2 and p.returncode != 0:
+            fault_fail(f"resume {i} exited {p.returncode}", logs[i:i + 1])
+        (rest,) = [e for e in ev if e["event"] == "restore"]
+        first = [e for e in ev if e["event"] == "first_step"][0]
+        assert rest["step"] == want_step, (rest, want_step)
+        assert first["step"] == want_step + 1, first
+        assert np.isfinite(first["loss"]) and first["launches"] == 13, first
+        to_step = first["t"] - t_launch - rest["check_s"]
+        restored = (f"restored step {rest['step']} (epoch {rest['epoch']}) "
+                    f"from {rest['path']}, {rest['tensors']} tensors bitwise "
+                    f"equal to the file read on the host (restore "
+                    f"{rest['restore_s']:.2f} s, check {rest['check_s']:.2f} "
+                    f"s); relaunch to the first resumed step {to_step:.2f} s "
+                    f"(the check left out)")
+        if not kill2:
+            assert any(e["event"] == "done" for e in ev)
+            log(f"fault (a) resume {i - 1}: {restored}; step "
+                f"{first['step']}: loss {first['loss']:.4f}, fused_adamw "
+                f"launches {first['launches']}; stopped there [{card}]")
+            return ev, first["launches"], None, to_step
+        epochs = [e for e in ev if e["event"] == "epoch"]
+        assert epochs, f"resume {i}: no epoch trained"
+        e = epochs[0]
+        assert e["epoch"] == want_step // spe + 1 and e["steps"] == spe
+        assert np.isfinite(e["loss"]) and e["launches"] == 13 * spe, e
+        assert e["k1_over"] == 0, e
+        log(f"fault (a) resume {i - 1}: {restored}; epoch {e['epoch']}: "
+            f"{e['steps']} steps in {e['s']:.2f} s, loss {e['loss']:.4f}, "
+            f"fused_adamw launches {e['launches']} = 13 x {spe}; K1 against "
+            f"adamw_reference on the state's 13 tensors: max abs err "
+            f"{e['k1_max_abs_err']:.3e}, 0 over update_bounds [{card}]")
+        return ev, e["launches"], killed_at, to_step
+
+    ev2, launches2, killed, to_step2 = resumed(1, spe, True)
+    meta = os.path.join(periodic, "train_meta.json")
+    left = on_disk(ckpt)
+    commit2 = [e for e in ev2 if e["event"] == "committed"][0]
+    log(f"fault (a) kill 2: SIGKILL {killed - commit2['t']:.3f} s after the "
+        f"epoch-2 commit (write {commit2['write_s']:.2f} s), before its "
+        f"sidecar; train_meta.json "
+        f"{json.load(open(meta)) if os.path.exists(meta) else 'absent'}; "
+        f"left on disk {left} [{card}]")
+    assert f"periodic/ckpt_{2 * spe}.pt" in [f for f, _ in left]
+    _, launches3, _, to_step3 = resumed(2, 2 * spe, False)
+    log(f"fault (a): on disk {on_disk(ckpt)}; unfinished files are left in "
+        f"place, as the JAX package's Orbax manager leaves its own [{card}]")
+    return [launches2, launches3], [to_step2, to_step3]
+
+
+def fault_mesh(root, card, tmp):
+    """Phase 22 (b): the flagship in float32 at the round-3 set on (2,2),
+    four CLI ranks sharing the card over gloo with HEARTBEAT_TIMEOUT_S;
+    rank 3 kills itself at the top of epoch 3 once the epoch-2 checkpoint
+    has committed; every survivor must exit non-zero within the heartbeat
+    plus 15 s; then the gang restarts, restores epoch 2, trains epochs 3-4
+    and every rank reports the same evaluation. Returns K1's launches per
+    rank per step."""
+    from gdmcf_torch.data.loader import generate_synthetic_dataset
+
+    data_dir = os.path.join(tmp, "round3")
+    generate_synthetic_dataset(data_dir, **ROUND3_GATE_SET)
+    dp, mp = FAULT_MESH
+    world = dp * mp
+    ckpt = os.path.join(tmp, "mesh_ckpt")
+    # the golden recipe of the round-3 gates, the flagship, in float32 (as
+    # phase 21's option_config); JSON is YAML, so it is the CLI's preset
+    cfg = golden_config(0, compute_dtype="float32", **ROUND3)
+    recipe = os.path.join(tmp, "round3_flagship.yaml")
+    with open(recipe, "w") as fh:
+        json.dump(cfg.to_dict(), fh)
+    spe = (ROUND3_GATE_SET["n_user"] // dp) // (cfg.batch_size // dp)
+    flags = ["-c", recipe, "--device", "cuda:0", "--data_path", data_dir,
+             "--dataset", "round3", "--log_name",
+             os.path.join(tmp, "mesh_log"),
+             "--epochs", str(FAULT_MESH_EPOCHS), "--eval_every", "2",
+             "--ckpt_dir", ckpt, "--ckpt_every", "1", "--resume", "true",
+             "--mesh_dp", str(dp), "--mesh_mp", str(mp), "--debug", "true"]
+
+    def gang(tag, kill):
+        port = fixed_port()
+        procs, logs = [], []
+        for rank in range(world):
+            env = {"COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+                   "NUM_PROCESSES": str(world), "PROCESS_ID": str(rank),
+                   "DIST_BACKEND": "gloo", "OMP_NUM_THREADS": "2",
+                   "HEARTBEAT_TIMEOUT_S": str(FAULT_HEARTBEAT_S),
+                   "FAULT_STEPS": str(spe), "FAULT_CKPT": ckpt}
+            if kill and rank == world - 1:
+                env["FAULT_KILL_EPOCH"] = "3"
+            logs.append(os.path.join(tmp, f"mesh_{tag}_rank{rank}.log"))
+            procs.append(fault_start(root, flags, logs[-1], env))
+        ends = [None] * world
+        t0 = time.time()
+        while None in ends and time.time() - t0 < FAULT_PROC_TIMEOUT:
+            for r, p in enumerate(procs):
+                if ends[r] is None and p.poll() is not None:
+                    ends[r] = time.time()
+            time.sleep(0.02)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        hung = [r for r, e in enumerate(ends) if e is None]
+        if hung:
+            fault_fail(f"mesh {tag}: ranks {hung} hung", logs)
+        return t0, procs, logs, ends
+
+    t0, procs, logs, ends = gang("fault", True)
+    evs = [fault_events(p) for p in logs]
+    kills = [e for e in evs[-1] if e["event"] == "kill"]
+    if not kills or procs[-1].returncode != -9:
+        fault_fail("mesh fault: rank 3 did not kill itself", logs)
+    died = kills[0]["t"]
+    assert kills[0]["committed"], "the epoch-2 checkpoint had not committed"
+    detect = [ends[r] - died for r in range(world - 1)]
+    for r in range(world - 1):
+        done = [e["epoch"] for e in evs[r] if e["event"] == "epoch"]
+        if procs[r].returncode in (0, None) or 3 in done or done[-1:] != [2]:
+            fault_fail(f"mesh fault: survivor {r} exited "
+                       f"{procs[r].returncode} after epochs {done}", logs)
+    assert max(detect) <= FAULT_HEARTBEAT_S + 15.0, detect
+    steps = [e for ev in evs for e in ev if e["event"] == "epoch"]
+    per_step = sorted({e["launches"] // e["steps"] for e in steps})
+    log(f"fault (b) mesh {FAULT_MESH}: the flagship in float32 at the "
+        f"round-3 set (ranks sharing the card over gloo, "
+        f"HEARTBEAT_TIMEOUT_S {FAULT_HEARTBEAT_S}); rank 3 SIGKILLed "
+        f"itself at the top of epoch 3, {died - t0:.1f} s after launch, "
+        f"the epoch-2 checkpoint committed; survivors exited "
+        f"{[procs[r].returncode for r in range(world - 1)]} after "
+        f"{[round(d, 2) for d in detect]} s (limit "
+        f"{FAULT_HEARTBEAT_S + 15.0:.0f} s), none past epoch 2; fused_adamw"
+        f" launches per rank per step {per_step} [{card}]")
+
+    t0, procs, logs, ends = gang("resume", False)
+    evs = [fault_events(p) for p in logs]
+    if any(p.returncode != 0 for p in procs):
+        fault_fail(f"mesh resume exited {[p.returncode for p in procs]}",
+                   logs)
+    results, firsts = set(), []
+    for r, ev in enumerate(evs):
+        (rest,) = [e for e in ev if e["event"] == "restore"]
+        assert rest["step"] == 2 * spe and rest["epoch"] == 2, rest
+        done = [e["epoch"] for e in ev if e["event"] == "epoch"]
+        assert done == [3, 4], (r, done)
+        assert all(np.isfinite(e["loss"]) for e in ev
+                   if e["event"] == "epoch")
+        evals = [e["results"] for e in ev if e["event"] == "eval"]
+        results.add(json.dumps(evals[-2:]))
+        firsts.append([e["t"] for e in ev if e["event"] == "first_step"][0])
+    assert len(results) == 1, results
+    log(f"fault (b) gang restart: every rank restored step {2 * spe} "
+        f"(epoch 2; {rest['tensors']} tensors a rank bitwise equal to its "
+        f"blocks of the file), trained epochs 3-4 and reported the same "
+        f"evaluation {json.loads(results.pop())}; restart to the first "
+        f"resumed step {max(firsts) - t0:.2f} s (the slowest rank) [{card}]")
+    steps += [e for ev in evs for e in ev if e["event"] == "epoch"]
+    return sorted({e["launches"] // e["steps"] for e in steps}), detect, \
+        max(firsts) - t0
+
+
+def debug_nans_phase(root, card, torch, csr):
+    """Phase 22 (d): the flagship at the Amazon-Book width on the card
+    under debug_nans: a NaN planted in a parameter raises at the loss, an
+    infinite gradient raises after K1's update and names the tensor; the
+    flag off, the same steps do not raise; clean step times with the flag
+    on and off."""
+    from gdmcf_torch.config import load_config
+    from gdmcf_torch.data.native import NativeCSR
+    from gdmcf_torch.ops import fused_adamw as FA
+    from gdmcf_torch.train.trainer import Trainer
+
+    cfg = load_config(os.path.join(root, "configs", "amazonOneEmbGcn.yaml"),
+                      {"device": "cuda", "debug_nans": True})
+    trainer = Trainer(cfg, N_USER, N_ITEM)
+    state = trainer.init_state()
+    batches = train_stream(NativeCSR.from_scipy(csr), cfg.batch_size, seed=5)
+
+    def step():
+        x, idx = next(batches)
+        return trainer.train_step(state, torch.from_numpy(x),
+                                  torch.from_numpy(idx))
+
+    times = {}
+    for on in (False, True, False, True):
+        cfg.debug_nans = on
+        ms = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        times.setdefault(on, []).extend(ms[1:])
+    name = "in_layers2.0.weight"
+    param = state.params[name]
+    with torch.no_grad():
+        saved = param[0, 0].clone()
+        param[0, 0] = float("nan")
+    cfg.debug_nans = True
+    FA.reset_launch_counts()
+    try:
+        step()
+        raise AssertionError("debug_nans: a NaN parameter did not raise")
+    except FloatingPointError as e:
+        raised_param = str(e)
+    launches_param = FA.LAUNCHES["fused_adamw"]
+    with torch.no_grad():
+        param[0, 0] = saved
+    # an infinite gradient: finite loss and backward, non-finite after K1
+    x, idx = next(batches)
+    loss, grads, lt = trainer.loss_and_grads(state, torch.from_numpy(x),
+                                             torch.from_numpy(idx))
+    snapshot = {k: p.detach().clone() for k, p in state.params.items()}
+    opt0 = {k: (state.opt_state.mu[k].clone(), state.opt_state.nu[k].clone())
+            for k in state.params}
+    count0 = state.opt_state.count.clone()
+    grads["emb_layer.bias"][0] = float("inf")
+    FA.reset_launch_counts()
+    try:
+        trainer.apply_grads(state, grads, lt)
+        raise AssertionError("debug_nans: an infinite gradient did not raise")
+    except FloatingPointError as e:
+        raised_grad = str(e)
+    launches_grad = FA.LAUNCHES["fused_adamw"]
+    assert "emb_layer.bias" in raised_grad and launches_grad == 13
+    # the flag off: the same two steps run through
+    with torch.no_grad():
+        for k, p in state.params.items():
+            p.copy_(snapshot[k])
+            state.opt_state.mu[k].copy_(opt0[k][0])
+            state.opt_state.nu[k].copy_(opt0[k][1])
+        state.opt_state.count.copy_(count0)
+    cfg.debug_nans = False
+    trainer.apply_grads(state, grads, lt)
+    off_grad = bool(torch.isfinite(state.params["emb_layer.bias"]).all())
+    with torch.no_grad():
+        param[0, 0] = float("nan")
+    _, loss_off = step()
+    log(f"debug_nans (flagship, Amazon-Book width, cuda): a NaN in {name} "
+        f"raised FloatingPointError ({raised_param!r}; K1 launches before it "
+        f"{launches_param}); an infinite gradient of emb_layer.bias raised "
+        f"after K1's {launches_grad} launches ({raised_grad!r}); the flag "
+        f"off: neither raised (loss {loss_off.item()}, emb_layer.bias "
+        f"finite {off_grad}); clean step p50 {np.median(times[False]):.2f} "
+        f"ms off, {np.median(times[True]):.2f} ms on [{card}]")
+    assert not np.isfinite(loss_off.item()) and not off_grad
+    del trainer, state, snapshot, opt0, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return float(np.median(times[False])), float(np.median(times[True]))
+
+
+def fault_phase(root, card, torch, csr):
+    """Phase 22: (a), (b) and (d); returns what the kernel line takes."""
+    tmp = tempfile.mkdtemp(prefix="gdmcf_fault_")
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        launches, to_step = fault_one_process(root, card, csr, tmp)
+        log(f"fault (a): {time.perf_counter() - t0:.1f} s")
+        shutil.rmtree(os.path.join(tmp, "ckpt"), ignore_errors=True)
+        t0 = time.perf_counter()
+        mesh_launches, detect, restart = fault_mesh(root, card, tmp)
+        log(f"fault (b): {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    off_ms, on_ms = debug_nans_phase(root, card, torch, csr)
+    log(f"debug_nans (d): {time.perf_counter() - t0:.1f} s")
+    log(f"fault phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches_fault_resumed_epoch": launches[0],
+            "launches_fault_resumed_first_step": launches[1],
+            "launches_fault_mesh_per_rank_step": mesh_launches,
+            "fault_relaunch_to_step_s": to_step,
+            "fault_mesh_detection_s": detect,
+            "fault_mesh_restart_to_step_s": restart,
+            "debug_nans_step_ms_off_on": [off_ms, on_ms]}
+
+
 def main() -> int:
     import argparse
 
@@ -4182,6 +4924,8 @@ def main() -> int:
         return mesh_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--serve-mesh-worker"]:   # a rank of phase 21
         return serve_mesh_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--fault-cli"]:   # a training process of phase 22
+        return fault_cli(sys.argv[2:])
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="FILE", default=None,
                         help="write torch.profiler tables of 5 lightGCN "
@@ -4205,6 +4949,10 @@ def main() -> int:
                         help="run only phase 21 (serving on a mesh of "
                              "ranks sharing the card, and the options that "
                              "read across batch rows on a mesh)")
+    parser.add_argument("--fault-phase", action="store_true",
+                        help="run only phase 22 (recovery from a killed "
+                             "process, one process and a mesh, and "
+                             "debug_nans on the card)")
     parser.add_argument("--mesh-diagnostic", action="store_true",
                         help="print what phase 19's parameter limits rest "
                              "on: GEMM rounding by shape, TF32 and planted "
@@ -4248,6 +4996,15 @@ def main() -> int:
         launches = serve_mesh_phase(root, card, torch, power_law_graph(0))
         log(f"serve mesh launches {json.dumps(launches)}")
         log(f"chip_smoke (phase 21 only): "
+            f"{time.perf_counter() - t_start:.1f} s")
+        log(card)
+        return 0
+    if args.fault_phase:
+        FA.build_kernel()
+        log(card)
+        fault = fault_phase(root, card, torch, power_law_graph(0))
+        log(f"fault launches {json.dumps(fault)}")
+        log(f"chip_smoke (phase 22 only): "
             f"{time.perf_counter() - t_start:.1f} s")
         log(card)
         return 0
@@ -4337,7 +5094,7 @@ def main() -> int:
     try:
         generate_synthetic_dataset(data_dir, seed=0)
         t0 = time.perf_counter()
-        entry["launches_golden"] = golden_phase(root, card, torch, data_dir)
+        entry["launches_golden"] = golden_phase(root, card, data_dir)
         log(f"golden phase: {time.perf_counter() - t0:.1f} s")
 
         # 9. fit at the Amazon-Book width
@@ -4392,7 +5149,7 @@ def main() -> int:
 
         # 16. the backbone golden gates
         t0 = time.perf_counter()
-        gates = backbone_gates_phase(root, card, torch, data_dir)
+        gates = backbone_gates_phase(root, card, data_dir)
         entry["launches_backbone_gates"] = sum(gates.values())
         entry["launches_by_gate"] = gates
         log(f"backbone gates phase: {time.perf_counter() - t0:.1f} s")
@@ -4408,9 +5165,10 @@ def main() -> int:
         # 18. the legacy and ablation gates, then their Amazon-width epochs
         t0 = time.perf_counter()
         entry["launches_variant_gates"] = variant_gates_phase(
-            root, card, torch, data_dir)
+            root, card, data_dir)
         entry["launches_variant_epochs"] = variant_epochs_phase(
             root, card, torch, csr)
+        close_gate_pool()   # phase 18 trains the last gate
         log(f"variant phase: {time.perf_counter() - t0:.1f} s")
 
         # 19. the meshes: ranks sharing the card over gloo
@@ -4439,13 +5197,16 @@ def main() -> int:
         for k in kernels[:2]:
             k["launches_serve_mesh_lightgcn_startup_by_rank"] = [
                 r[k["name"]] for r in served["spmm"]]
-        del csr
         log(f"serve mesh phase: {time.perf_counter() - t0:.1f} s")
+
+        # 22. recovery from a killed process; debug_nans on the card
+        entry.update(fault_phase(root, card, torch, csr))
+        del csr
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    # 22. results
-    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of phases 1-21")
+    # 23. results
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of phases 1-22")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {
@@ -4455,4 +5216,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        close_gate_pool()
+    sys.exit(rc)

@@ -27,7 +27,8 @@ AXES = ("dp", "mp")
 
 def make_mesh(dp: int = 1, mp: int = 1, device_type: str = "cpu"):
     """The (dp, mp) DeviceMesh over the whole world, which must hold exactly
-    dp * mp ranks (``multihost.initialize`` starts it)."""
+    dp * mp ranks (``multihost.initialize`` starts it); each axis's group
+    raises after the world's collective timeout."""
     from torch.distributed.device_mesh import init_device_mesh
 
     need = dp * mp
@@ -38,7 +39,12 @@ def make_mesh(dp: int = 1, mp: int = 1, device_type: str = "cpu"):
             f"device; this process sees {have if dist.is_initialized() else 'no'}"
             " process group (start one rank per device with "
             "gdmcf_torch.parallel.multihost.initialize)")
-    return init_device_mesh(device_type, (dp, mp), mesh_dim_names=AXES)
+    from gdmcf_torch.parallel.multihost import hold_to_timeout
+
+    mesh = init_device_mesh(device_type, (dp, mp), mesh_dim_names=AXES)
+    for axis in AXES:   # the axes' groups wait no longer than the world's
+        hold_to_timeout(mesh.get_group(axis))
+    return mesh
 
 
 def single_device_mesh(device=None):

@@ -43,9 +43,10 @@ def initialize(coordinator_address: Optional[str] = None,
 
     Env contract: COORDINATOR_ADDRESS (host:port of rank 0's store),
     NUM_PROCESSES, PROCESS_ID. ``heartbeat_timeout_s`` (env
-    HEARTBEAT_TIMEOUT_S) becomes the process group's timeout: a collective
-    waiting on a dead peer raises after it instead of hanging; without it
-    the timeout is ``timeout_s``. ``backend`` (env DIST_BACKEND) defaults
+    HEARTBEAT_TIMEOUT_S) becomes the process group's timeout, and the mesh
+    axes' groups get it too (``hold_to_timeout``): a collective waiting on a
+    dead or silent peer raises after it instead of hanging; without it the
+    timeout is ``timeout_s``. ``backend`` (env DIST_BACKEND) defaults
     to nccl for a ``device`` of cuda and gloo for cpu."""
     global _TIMEOUT_S
     coordinator_address = coordinator_address or os.environ.get(
@@ -82,6 +83,17 @@ def collective_timeout_s() -> float:
     process group's timeout (torch's default of 300 s for a group that
     ``initialize`` did not start)."""
     return 300.0 if _TIMEOUT_S is None else _TIMEOUT_S
+
+
+def hold_to_timeout(group) -> None:
+    """Give ``group`` (a subgroup of the world, e.g. a mesh axis) the
+    world's collective timeout, when ``initialize`` set one: torch starts a
+    new group with its own default of 30 minutes, so without this a rank
+    waiting on a silent peer of its dp or mp group would hang that long."""
+    if _TIMEOUT_S is not None:
+        from torch.distributed.distributed_c10d import _set_pg_timeout
+
+        _set_pg_timeout(timedelta(seconds=_TIMEOUT_S), group)
 
 
 def shutdown() -> None:

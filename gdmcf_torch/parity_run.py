@@ -12,6 +12,16 @@ flags and defaults (the flagship recipe's golden gate) plus ``--device``:
 
 DIR holds ``{train,valid,test}_list.npy``
 (``data.loader.generate_synthetic_dataset`` writes them).
+
+``--dump-scores STEM`` also writes each seed's raw final score matrix to
+``STEM.s<seed>.npy`` (``final_scores``), what the tie-neutral OneHotMatrix 1
+gate ranks with the unchanged ``benchmarks/oh1_neutral_eval.py``:
+
+    python -m gdmcf_torch.parity_run --data-dir DIR --backbone DNN \\
+        --OneHotMatrix 1 --lr 1e-4 --batch 400 \\
+        --dump-scores /tmp/oh1/torch --out /tmp/oh1/torch.json
+    python benchmarks/oh1_neutral_eval.py --data-dir DIR \\
+        --ref '/tmp/oh1/ref_s*.npy' --ours '/tmp/oh1/torch.s*.npy'
 """
 
 from __future__ import annotations
@@ -39,6 +49,47 @@ class Collector:
             [float(v) for v in group] for group in results]
 
 
+def final_scores(trainer, train_csr, n_rows: int,
+                 generator=None) -> np.ndarray:
+    """The raw final score matrix of the tie-neutral OneHotMatrix 1
+    protocol, as ``benchmarks/parity_run.py --dump-scores`` makes it:
+    ``p_sample`` at the recipe's ``sampling_steps`` over the training rows
+    0 .. (n_rows // batch) * batch in batches, with no <= 0.1 zeroing and
+    no history mask; under OneHotMatrix 1 each batch's block adjacency
+    (``Trainer._to_block_onehot``) is sampled and its [B, n_item]
+    user-item block kept. ``generator`` (default: seeded 0 on the
+    trainer's device, where the JAX side passes ``PRNGKey(0)``) makes any
+    draw the sampler takes. The parameters are the trainer's model's.
+    [rows, n_item] float32."""
+    import torch
+
+    from gdmcf_torch.train.trainer import matmul_precision
+
+    cfg, dev = trainer.cfg, trainer.device
+    if generator is None:
+        generator = torch.Generator(dev).manual_seed(0)
+    dense = train_csr[:n_rows].astype(np.float32).toarray()
+    bs = cfg.batch_size
+    rows = []
+    trainer.model.eval()
+    with torch.inference_mode(), matmul_precision(trainer.tf32):
+        for start in range(0, (n_rows // bs) * bs, bs):
+            x = torch.from_numpy(dense[start:start + bs]).to(dev)
+            b = x.shape[0]
+            block = (trainer._to_block_onehot(x) if cfg.OneHotMatrix == 1
+                     else x)
+            s = trainer.diffusion.p_sample(
+                trainer.model, block,
+                torch.arange(start, start + b, dtype=torch.int64,
+                             device=dev),
+                sampling_steps=cfg.sampling_steps,
+                sampling_noise=cfg.sampling_noise, generator=generator)
+            if cfg.OneHotMatrix == 1:
+                s = s[:b, b:]
+            rows.append(s.float().cpu().numpy())
+    return np.concatenate(rows, axis=0)
+
+
 def run_seed(opts, seed: int) -> dict:
     from gdmcf_torch.config import Config
     from gdmcf_torch.data.loader import data_load_dir
@@ -62,7 +113,7 @@ def run_seed(opts, seed: int) -> dict:
     _state, best = trainer.fit(train, valid, test, log=lambda *a: None,
                                metric_logger=col)
     losses = col.losses
-    return {
+    out = {
         "seed": seed, "losses": losses,
         "evals": [{"epoch": e, **ev} for e, ev in sorted(col.evals.items())],
         "best_test": [[float(v) for v in g] for g in best] if best else None,
@@ -70,6 +121,12 @@ def run_seed(opts, seed: int) -> dict:
         "tail_loss": float(np.mean(losses[-max(1, len(losses) // 4):])),
         "elapsed_s": round(time.time() - t0, 1),
     }
+    if opts.dump_scores:
+        path = f"{opts.dump_scores}.s{seed}.npy"
+        np.save(path, final_scores(trainer, train,
+                                   min(n_user, opts.n_user_cap or n_user)))
+        out["scores_path"] = path
+    return out
 
 
 def main(argv=None):
@@ -93,6 +150,10 @@ def main(argv=None):
     ap.add_argument("--OneHotMatrix", type=int, default=2)
     ap.add_argument("--variant", default="discrete",
                     choices=["discrete", "legacy", "ablation"])
+    ap.add_argument("--dump-scores", default=None,
+                    help="path stem for the final raw score matrices "
+                         "(<stem>.s<seed>.npy; the tie-neutral OneHotMatrix "
+                         "1 protocol)")
     ap.add_argument("--out", default=None)
     opts = ap.parse_args(argv)
 

@@ -45,6 +45,13 @@ that read across batch rows (NT-Xent, the transformer's attention, the
 symmetric GCN's sums) read the whole batch while the model runs a block
 (``_rows_of``), and OneHotMatrix 1 shards the rows of the whole batch's
 block adjacency over dp (``_onehot_rows``).
+
+``debug_nans`` is the port of ``jax_debug_nans``: a train step checks its
+loss, runs its backward pass under ``torch.autograd.detect_anomaly`` and
+checks the parameters and moments after the update, and ``eval_step``
+checks the sampled scores; the first non-finite value raises
+``FloatingPointError`` naming where it was found. Without the flag none of
+this runs: no check, no sync.
 """
 
 from __future__ import annotations
@@ -83,6 +90,27 @@ def matmul_precision(tf32: bool):
         yield
     finally:
         torch.set_float32_matmul_precision(old)
+
+
+def _finite_or_raise(what: str, t: torch.Tensor) -> None:
+    """debug_nans: raise ``FloatingPointError`` if ``t`` holds a NaN or an
+    infinity (one sync)."""
+    if not bool(torch.isfinite(t).all()):
+        raise FloatingPointError(f"debug_nans: a non-finite value in {what}")
+
+
+@contextlib.contextmanager
+def _nan_anomaly():
+    """debug_nans: the block's backward passes run under anomaly detection
+    with NaN checks, whose error is re-raised as ``FloatingPointError``."""
+    with torch.autograd.detect_anomaly(check_nan=True):
+        try:
+            yield
+        except RuntimeError as e:
+            if "nan values" not in str(e):
+                raise
+            raise FloatingPointError(
+                f"debug_nans: the backward pass: {e}") from e
 
 
 def _rank_device(device) -> torch.device:
@@ -325,7 +353,9 @@ class Trainer:
             draws = self.diffusion.train_draws(
                 state.lt, block.total, x.shape[1], state.generator,
                 model=self.model, keep=block.cut)
-        with matmul_precision(self.tf32), self._rows_of(block):
+        check = self.cfg.debug_nans
+        with matmul_precision(self.tf32), self._rows_of(block), \
+                (_nan_anomaly() if check else contextlib.nullcontext()):
             loss_vec, new_lt, _ = self.diffusion.training_losses(
                 self.model, x, index, state.lt, reweight=self.cfg.reweight,
                 generator=state.generator, draws=draws, block=block)
@@ -336,6 +366,8 @@ class Trainer:
                 # the gradients sum over dp below
                 objective = loss_vec.sum() / block.total
                 loss = block.gather(loss_vec).mean()
+            if check:
+                _finite_or_raise(f"the loss at step {state.step}", loss)
             # a parameter off the path (the GCN at gcnLayerNum 0) gets
             # zeros, as under jax.grad
             grads = torch.autograd.grad(
@@ -375,9 +407,22 @@ class Trainer:
         state.opt_state = fused_adamw_apply(
             state.params, grads, state.opt_state,
             lr=self._lr_at(state.step), weight_decay=self.cfg.weight_decay)
+        if self.cfg.debug_nans:
+            self._check_state(state)
         state.lt = new_lt
         state.step += 1
         return state
+
+    @staticmethod
+    def _check_state(state: TrainState) -> None:
+        """debug_nans: every parameter, moment and master after the update
+        (K1's forms and the optax path alike write them)."""
+        opt = state.opt_state
+        for group, tensors in (("params", state.params), ("mu", opt.mu),
+                               ("nu", opt.nu), ("master", opt.master or {})):
+            for name, t in tensors.items():
+                _finite_or_raise(f"{group}[{name!r}] after the AdamW update "
+                                 f"of step {state.step}", t)
 
     def train_step(self, state: TrainState, x: torch.Tensor,
                    index: torch.Tensor, draws: Optional[TrainDraws] = None):
@@ -478,6 +523,8 @@ class Trainer:
                 self.model, rows, ids, sampling_steps=sampling_steps,
                 sampling_noise=self.cfg.sampling_noise, generator=generator,
                 draws=draws, block=run)
+        if self.cfg.debug_nans:
+            _finite_or_raise("the eval step's sampled scores", scores)
         if onehot_block:
             if run is not None:   # the whole adjacency's scores
                 scores = run.gather(scores)

@@ -9,7 +9,11 @@ and small results) there. ``MODE=dead_peer`` runs the failure-detection
 check instead; ``MODE=serve`` (tests/test_torch_serve_mesh.py) a mesh
 ``Recommender`` and, on (2, 1), the options that read across batch rows;
 ``MODE=option`` (tests/test_torch_parallel.py) two train steps of one such
-option.
+option. ``MODE=fault`` and ``MODE=resume`` (tests/test_torch_fault.py) are
+the recovery story of tests/multihost_fault_worker.py on the port's mesh
+``fit``: the last rank SIGKILLs itself at the top of epoch 3, once the
+epoch-2 checkpoint has committed, and the survivors must fail; then every
+rank restarts, restores epoch 2, trains epochs 3-4 and prints its metrics.
 
 Imports torch and the port only.
 """
@@ -75,6 +79,71 @@ def dead_peer():
         print(f"DEAD_PEER raised {type(e).__name__} after "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     os._exit(0)
+
+
+FAULT_EPOCH, FAULT_EPOCHS = 3, 4
+
+
+def fault_world():
+    """MODE=fault / MODE=resume on the mesh MESH="dp,mp" over the splits in
+    WORK_DIR/fault.npz, checkpoints in WORK_DIR/ck (``ckpt_every`` 1). Each
+    rank prints EPOCH_DONE after an epoch; under fault the last rank prints
+    FAULT_SELF_KILL and dies at the top of epoch 3 and the others print
+    SURVIVOR_ENTERING there; under resume every rank holds what it restored
+    bitwise against its blocks of the file and prints RESTORED, and
+    WORKER_OK with its recall at the end. Under FAULT=stall the last rank
+    stops itself instead of dying."""
+    import scipy.sparse as sp
+    import torch.distributed as dist
+
+    from torch_fault_hooks import check_restores, die, hook_epochs, wait_for
+
+    from gdmcf_torch.config import Config
+    from gdmcf_torch.train.trainer import Trainer
+
+    multihost.initialize(device="cpu")   # HEARTBEAT_TIMEOUT_S: the env's
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mode, work = os.environ["MODE"], os.environ["WORK_DIR"]
+    dp, mp = (int(v) for v in os.environ["MESH"].split(","))
+    data = np.load(os.path.join(work, "fault.npz"))
+    tr, va, te = (sp.csr_matrix(data[k]) for k in ("train", "valid", "test"))
+    ckpt = os.path.join(work, "ck")
+    cfg = Config(device="cpu", backbone="DNN", dims=[8], emb_size=10,
+                 steps=5, batch_size=4 * dp, sampling_steps=0, lr=1e-3,
+                 topN=[5, 10], mesh_dp=dp, mesh_mp=mp, epochs=FAULT_EPOCHS,
+                 eval_every=100, ckpt_every=1, ckpt_dir=ckpt,
+                 resume=mode == "resume")
+    t = Trainer(cfg, *tr.shape)
+    spe = (tr.shape[0] // dp) // (cfg.batch_size // dp)   # steps an epoch
+
+    def before(epoch):
+        if mode != "fault" or epoch != FAULT_EPOCH:
+            return
+        if rank == world - 1:
+            # the epoch-2 checkpoint has committed (the main rank writes it
+            # in the background)
+            wait_for(os.path.join(ckpt, "periodic",
+                                  f"ckpt_{(FAULT_EPOCH - 1) * spe}.pt"))
+            # FAULT=stall: alive but silent, its sockets open (a hung
+            # process, a host lost without a reset)
+            stall = os.environ.get("FAULT") == "stall"
+            die(f"FAULT_SELF_{'STOP' if stall else 'KILL'} rank={rank} "
+                f"epoch={epoch} t={time.time():.3f}", stop=stall)
+        print(f"SURVIVOR_ENTERING rank={rank} epoch={epoch}", flush=True)
+
+    hook_epochs(t, spe, before, lambda epoch, loss: print(
+        f"EPOCH_DONE rank={rank} epoch={epoch} loss={loss:.6f}", flush=True))
+    check_restores(lambda state, path: print(
+        f"RESTORED rank={rank} step={state.step} epoch={state.step // spe}",
+        flush=True))
+
+    state, _ = t.fit(tr, va, te, log=lambda *a: None)
+    rows = tr.astype(np.float32).toarray()
+    gt = va.astype(np.float32).toarray()
+    res = t.evaluate(state, rows, gt, rows, [5, 10])
+    print(f"WORKER_OK rank={rank} mode={mode} step={state.step} "
+          f"recall={[round(float(v), 6) for v in res[1]]}", flush=True)
+    multihost.shutdown()
 
 
 def cut_train_draws(d, lo, hi, rows_lo, rows_hi, attention):
@@ -340,6 +409,8 @@ def serve_world():
 def main():
     if os.environ.get("MODE") == "dead_peer":
         return dead_peer()
+    if os.environ.get("MODE") in ("fault", "resume"):
+        return fault_world()
     if os.environ.get("MODE") == "option":
         return option_world()
     if os.environ.get("MODE") == "serve":
