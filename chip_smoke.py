@@ -255,13 +255,30 @@ Phases (any failure exits non-zero):
      a parameter raises FloatingPointError at the loss, an infinite
      gradient raises after K1's 13 launches naming the tensor, the flag
      off neither raises; clean step p50 with the flag off and on;
- 23. the kernel JSON line, the card's name and power limit, and as the
+ 23. the fused calls (train_steps_per_call and eval_batches_per_call 8,
+     CUDA graphs of gdmcf_torch/train/graphs.py): the flagship and DNN at
+     the Amazon-Book width and G9's OneHotMatrix 1 DNN on the graph's
+     first 1,000 items, 64 steps from one seed in turns at K 1, 8, 8, 1
+     (at K 8 the first group eager, then the graph captured and
+     replayed), every run bitwise equal to the first (parameters,
+     moments, count, Lt ring, the 64 losses, the generator's state; the
+     second K 1 run tells an eager op's nondeterminism from the graph's); the epoch
+     scaled to 272 steps, step p50, capture seconds, peak and reserved
+     memory growth, K1 launches as the eager group's plus captured x
+     replays, and for the flagship a further epoch under torch.profiler
+     whose _adamw_kernel count must equal that number;
+     evaluate_streaming of 16 batches of phase 9's valid split at
+     eval_batches_per_call 1 and 8, twice each, the metric sums bitwise
+     equal; phases 6, 9, 15, 18, 20 and 22 train at the recipe's K 8
+     too (the gates pin 1, as parity_run.py does);
+ then the kernel JSON line, the card's name and power limit, and as the
      last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --mesh-phase     # phase 19 alone, no JSON line
     python3 chip_smoke.py --serve-mesh-phase
                                            # phase 21 alone, no JSON line
     python3 chip_smoke.py --fault-phase    # phase 22 alone, no JSON line
+    python3 chip_smoke.py --fused-phase    # phase 23 alone, no JSON line
     python3 chip_smoke.py --precision-phase
                                            # phases 5, 6 and 20 alone: the
                                            # float32 epoch, then the
@@ -1368,8 +1385,14 @@ def fit_amazon_phase(root, card, torch, csr):
         size = os.path.getsize(os.path.join(ckpt_dir, f"ckpt_{state.step}.pt"))
         n_eval = N_USER // cfg.batch_size * cfg.batch_size
         (valid_s, test_s) = times["evaluate_streaming"]
+        graphs = trainer._graphs
+        fused = (f"train_steps_per_call {cfg.train_steps_per_call} and "
+                 f"eval_batches_per_call {cfg.eval_batches_per_call} as "
+                 f"{graphs.captures} CUDA graphs captured in "
+                 f"{graphs.capture_s:.2f} s, {graphs.replays()} replays")
         log(f"fit (Amazon-Book width, host_dense false): {fit_s:.2f} s for 1 "
-            f"epoch with both evaluations and the checkpoint; train_epoch "
+            f"epoch with both evaluations and the checkpoint; {fused}; "
+            f"train_epoch "
             f"{times['train_epoch'][0]:.2f} s ({state.step} steps, "
             f"fused_adamw launches {launches}); evaluate_streaming valid "
             f"{valid_s:.2f} s ({n_eval / valid_s:.0f} users/s), test "
@@ -3121,16 +3144,20 @@ def at_floor(torch, single, mesh):
     return out
 
 
-def mesh_reference(torch, trainer, data, users, tmp, tag, bits: bool):
+def mesh_reference(torch, trainer, data, users, tmp, tag, bits: bool,
+                   record=None):
     """MESH_STEPS single-process steps on the card: writes the parameters
     after them (``ref_<tag>.pt``) and, with ``bits``, each gradient's
-    ``floor_bits`` (``bits_<tag>.pt``); returns the losses."""
+    ``floor_bits`` (``bits_<tag>.pt``); returns the losses. ``record``:
+    called with (step, grads) after each backward pass."""
     state = trainer.init_state()
     losses, codes = [], {}
     for s in range(MESH_STEPS):
         loss, grads, lt = trainer.loss_and_grads(
             state, torch.from_numpy(data.gather_packed(users[s])),
             torch.from_numpy(users[s]))
+        if record is not None:
+            record(s, grads)
         if bits:
             for k, g in grads.items():
                 b = floor_bits(torch, g, s)
@@ -3146,7 +3173,7 @@ def mesh_reference(torch, trainer, data, users, tmp, tag, bits: bool):
 
 
 def mesh_steps(torch, trainer, cfg, tmp, tag, dp, mp, rank, fault="",
-               noise=None):
+               noise=None, record=None):
     """MESH_STEPS train steps of this rank's dp block of the single-process
     batches, then each trainable tensor against the single-process run's
     (``ref_<tag>.pt``): [elements past MESH_PARAMS, elements, largest
@@ -3156,7 +3183,8 @@ def mesh_steps(torch, trainer, cfg, tmp, tag, dp, mp, rank, fault="",
     ``in_layers.0.weight``'s gradient out of the dp all-reduce. ``noise``:
     (name, tensor) -> a mask of elements whose gradient is rounding noise
     in exact arithmetic, left out of the count and reported as their
-    largest difference in lr (``noise_lr``)."""
+    largest difference in lr (``noise_lr``). ``record``: called with
+    (step, grads) after each backward pass."""
     import scipy.sparse as sp
 
     from gdmcf_torch.data.native import NativeCSR
@@ -3199,6 +3227,8 @@ def mesh_steps(torch, trainer, cfg, tmp, tag, dp, mp, rank, fault="",
                                                  torch.from_numpy(u))
         if fault == "lookup":
             grads["embedding_user"].zero_()
+        if record is not None:
+            record(s, grads)
         state = trainer.apply_grads(state, grads, lt)
         losses.append(float(loss))
         torch.cuda.synchronize()
@@ -3671,8 +3701,159 @@ def gemm_rounding(torch, train):
     return out
 
 
-def mesh_diagnostic(root, card, torch, csr):
-    """--mesh-diagnostic: what phase 19's parameter limits rest on. The
+# --mesh-diagnostic: the transformer's elements past MESH_PARAMS on (2,1)
+TR_DIAG_ELEMENTS = 64          # the largest differences diagnosed
+TR_DIAG_ZERO = 1e-6            # a ReLU input this near zero, of its column's
+#                                largest, sits at the kink
+
+
+class TrRecorder:
+    """The transformer's per-step gradients (every tensor) and each
+    encoder layer's ReLU inputs (``ffN``'s output, this process's rows),
+    kept on the host for --mesh-diagnostic."""
+
+    def __init__(self, torch, trainer):
+        self.grads, self.relu_in = [], {}
+        for name, mod in trainer.model.named_modules():
+            if name.endswith(".ff1"):
+                mod.register_forward_hook(
+                    lambda m, i, o, name=name: self.relu_in.setdefault(
+                        name, []).append(o.detach().cpu()))
+
+    def grads_of(self, step, grads):
+        self.grads.append({k: g.detach().cpu() for k, g in grads.items()})
+
+    def save(self, path, state):
+        import torch
+        torch.save({"grads": self.grads, "relu_in": self.relu_in,
+                    "params": {k: p.detach().cpu()
+                               for k, p in state.params.items()}}, path)
+
+
+def tr_elements(torch, one, ranks, lr):
+    """The transformer's elements past MESH_PARAMS (the key bias's rounding
+    noise left out), the largest TR_DIAG_ELEMENTS differences: for each,
+    its tensor and index, the difference in lr and per step both runs'
+    gradients; for an ``ffN`` tensor the ReLU inputs of its unit over the
+    batch rows: the rows whose sign differs between the runs and those at
+    the kink (within TR_DIAG_ZERO of the column's largest)."""
+    # a (2,1) rank holds the whole tensors and the dp-reduced gradient;
+    # its ReLU inputs are its block of rows, in rank order
+    mesh = ranks[0]
+    found = []
+    for name, p in one["params"].items():
+        q = mesh["params"][name]
+        diff = (q - p).abs()
+        ratio = diff / (MESH_PARAMS["atol"] + MESH_PARAMS["rtol"] * p.abs())
+        ratio = ratio.masked_fill(key_bias(name, p).cpu(), 0.0)
+        for i in torch.nonzero(ratio >= 1).tolist():
+            found.append((float(diff[tuple(i)]) / lr, name, tuple(i)))
+    out = []
+    for d, name, i in sorted(found, reverse=True)[:TR_DIAG_ELEMENTS]:
+        steps = []
+        for s in range(MESH_STEPS):
+            g1 = float(one["grads"][s][name][i])
+            gm = [float(r["grads"][s][name][i]) for r in ranks]
+            step = {"grad_one": g1, "grad_mesh": gm,
+                    "signs_differ": any((g > 0) != (g1 > 0) or
+                                        (g == 0) != (g1 == 0) for g in gm),
+                    "under_eps": [abs(g1) < MESH_FLOOR,
+                                  all(abs(g) < MESH_FLOOR for g in gm)]}
+            layer = name.rsplit(".", 2)[0] + ".ff1"
+            unit = None
+            if name.endswith(("ff1.weight", "ff1.bias")):
+                unit = i[0]
+            elif name.endswith("ff2.weight"):
+                unit = i[1]
+            if unit is not None and layer in one["relu_in"]:
+                h1 = one["relu_in"][layer][s][:, unit]
+                hm = torch.cat([r["relu_in"][layer][s][:, unit]
+                                for r in ranks])
+                top = float(torch.maximum(h1.abs().max(), hm.abs().max()))
+                near = (h1.abs() <= TR_DIAG_ZERO * top) | \
+                    (hm.abs() <= TR_DIAG_ZERO * top)
+                flip = (h1 > 0) != (hm > 0)
+                step.update(relu_rows=int(h1.numel()),
+                            relu_sign_flips=int(flip.sum()),
+                            relu_at_kink=int(near.sum()),
+                            relu_flip_values=[[float(a), float(b)] for a, b
+                                              in zip(h1[flip][:4],
+                                                     hm[flip][:4])])
+            steps.append(step)
+        out.append({"tensor": name, "index": list(i), "lr_apart": d,
+                    "steps": steps})
+    return len(found), out
+
+
+def transformer_diagnostic(root, card, torch, found):
+    """--mesh-diagnostic for the transformer (G7's recipe at the round-3
+    set, float32): MESH_STEPS steps in one process on the card and on the
+    (2,1) mesh of phase 21 (``trdiag``), each element past MESH_PARAMS
+    with both runs' gradients and ReLU inputs (``tr_elements``)."""
+    import scipy.sparse as sp
+
+    from gdmcf_torch.data.loader import data_load, generate_synthetic_dataset
+    from gdmcf_torch.data.native import NativeCSR
+    from gdmcf_torch.train.trainer import Trainer
+
+    r3 = tempfile.mkdtemp(prefix="gdmcf_trdiag_")
+    try:
+        paths = generate_synthetic_dataset(os.path.join(r3, "data"),
+                                           **ROUND3_GATE_SET)
+        train = data_load(*paths)[0].tocsr()
+        sp.save_npz(os.path.join(r3, "train.npz"), train, compressed=False)
+        users = np.random.default_rng(21).choice(
+            train.shape[0], MESH_STEPS * 400, replace=False).reshape(
+            MESH_STEPS, 400).astype(np.int64)   # phase 21's
+        np.save(os.path.join(r3, "mesh_users.npy"), users)
+        cfg = option_config("tr", device="cuda")
+        trainer = Trainer(cfg, *train.shape)
+        rec = TrRecorder(torch, trainer)
+        mesh_reference(torch, trainer, NativeCSR.from_scipy(train), users,
+                       r3, "tr", bits=True, record=rec.grads_of)
+        one = {"grads": rec.grads, "relu_in": rec.relu_in,
+               "params": torch.load(os.path.join(r3, "ref_tr.pt"),
+                                    weights_only=True)}
+        del trainer, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        (rank0, rank1) = finish_world("trdiag", *OPTION_MESH, r3,
+                                      start_serve_world("trdiag",
+                                                        *OPTION_MESH, r3))
+        ranks = [torch.load(os.path.join(r3, f"trdiag_rank{r}.pt"),
+                            weights_only=True) for r in range(2)]
+        n, elements = tr_elements(torch, one, ranks, cfg.lr)
+        rep = rank0["tr"]["param_report"]
+        found["transformer (2,1)"] = {
+            "past": n, "elements": elements, "report": rep,
+            "noise_lr": rank0["tr"]["noise_lr"]}
+        log(f"mesh diagnostic transformer (2,1), {MESH_STEPS} steps in "
+            f"float32 against one process on the card: {n} elements past "
+            f"rtol {MESH_PARAMS['rtol']} / atol {MESH_PARAMS['atol']} (the "
+            f"key bias's noise left out); [past, elements, largest lr apart, "
+            f"past not at the floor, at the floor] "
+            f"{ {k: v for k, v in rep.items() if v[0]} } [{card}]")
+        for e in elements:
+            log(f"mesh diagnostic transformer {e['tensor']}{e['index']}: "
+                f"{e['lr_apart']:.4f} lr apart; by step "
+                + "; ".join(
+                    f"grad one {st['grad_one']:.3e} mesh "
+                    f"{st['grad_mesh'][0]:.3e} (signs differ "
+                    f"{st['signs_differ']}, under eps {st['under_eps']})"
+                    + (f", ReLU inputs of the unit: {st['relu_sign_flips']} "
+                       f"of {st['relu_rows']} rows flip sign, "
+                       f"{st['relu_at_kink']} at the kink, flips "
+                       f"{st['relu_flip_values']}"
+                       if "relu_rows" in st else "")
+                    for st in e["steps"]))
+    finally:
+        shutil.rmtree(r3, ignore_errors=True)
+
+
+def mesh_diagnostic(root, card, torch, csr, transformer_only=False):
+    """--mesh-diagnostic: what phase 19's and phase 21's parameter limits
+    rest on. First the transformer's elements past them on (2,1)
+    (``transformer_diagnostic``; ``transformer_only`` stops there), the
     first GEMM's rounding by shape with TF32 on and off, then (2,2) worlds
     of MESH_STEPS steps against single-process runs: at TF32 without a
     fault, and with a planted fault (the user table's gradient dropped; a
@@ -3684,8 +3865,14 @@ def mesh_diagnostic(root, card, torch, csr):
 
     tmp = tempfile.mkdtemp(prefix="gdmcf_mesh_")
     try:
+        found = {"card": card}
+        # the transformer first (ROADMAP §C: its check was widened after
+        # one element on (2,1)): the elements past the limit, diagnosed
+        transformer_diagnostic(root, card, torch, found)
+        if transformer_only:
+            return write_diagnostic(root, found)
         train, _, users, _ = mesh_inputs(csr, tmp)
-        found = {"card": card, "gemm": gemm_rounding(torch, train)}
+        found["gemm"] = gemm_rounding(torch, train)
         log(f"mesh diagnostic: first GEMM rounding {found['gemm']}")
         data = NativeCSR.from_scipy(train)
         for tag, dtype in (("f32", "float32"), ("tf32", "bfloat16")):
@@ -3725,12 +3912,16 @@ def mesh_diagnostic(root, card, torch, csr):
                 f"{ {k: v for k, v in floor.items() if v[0] or v[1]} }, "
                 f"largest share of a rank's tensor excused {excused:.4g}; "
                 f"{time.perf_counter() - t0:.1f} s")
-        os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
-        with open(os.path.join(root, "chiprun_out",
-                               "mesh_diagnostic.json"), "w") as fh:
-            json.dump(found, fh)
+        write_diagnostic(root, found)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def write_diagnostic(root, found):
+    os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(root, "chiprun_out", "mesh_diagnostic.json"),
+              "w") as fh:
+        json.dump(found, fh)
 
 
 # phase 21: serving on a (dp, mp) mesh and the options that read across
@@ -3815,8 +4006,9 @@ def serve_mesh_worker(argv) -> int:
     dispatches against one process's, the others following; the
     flagship's from the checkpoint in ``DIR/ckpt``, its 256-user dispatches
     timed), ``sym`` (the flagship under symmetric_gcn: the steps of
-    ``mesh_steps``) or ``options`` (OneHotMatrix 1 and the transformer at
-    the round-3 set)."""
+    ``mesh_steps``), ``options`` (OneHotMatrix 1 and the transformer at
+    the round-3 set) or ``trdiag`` (the transformer's steps of ``options``
+    recorded by ``TrRecorder`` for --mesh-diagnostic)."""
     import faulthandler
 
     kind, dp, mp, tmp = argv[0], int(argv[1]), int(argv[2]), argv[3]
@@ -3879,6 +4071,15 @@ def serve_mesh_worker(argv) -> int:
             trainer = Trainer(cfg, N_USER, N_ITEM)
             out["sym"], _ = mesh_steps(torch, trainer, cfg, tmp, "sym", dp,
                                        mp, rank)
+        elif kind == "trdiag":
+            train = sp.load_npz(os.path.join(tmp, "train.npz")).tocsr()
+            cfg = option_config("tr", **mesh)
+            trainer = Trainer(cfg, *train.shape)
+            rec = TrRecorder(torch, trainer)
+            out["tr"], state = mesh_steps(torch, trainer, cfg, tmp, "tr",
+                                          dp, mp, rank, noise=key_bias,
+                                          record=rec.grads_of)
+            rec.save(os.path.join(tmp, f"trdiag_rank{rank}.pt"), state)
         else:
             train = sp.load_npz(os.path.join(tmp, "train.npz")).tocsr()
             for tag in OPTION_GATES:
@@ -4369,7 +4570,9 @@ def fault_cli(argv) -> int:
     FAULT_STOP: exit 0 once the first step has run. Events
     go out as ``fault_emit`` lines: the checkpoint snapshot and write, the
     restore (held bitwise against the file on the host), the first step
-    (wall clock), each epoch (steps, K1 launches, loss), the evaluations."""
+    (wall clock; the first AdamW update, inside a fused group too), each
+    CUDA graph's capture (wall clock and seconds), each epoch (steps, K1
+    launches, loss), the evaluations."""
     import signal
 
     import torch
@@ -4381,6 +4584,7 @@ def fault_cli(argv) -> int:
     from gdmcf_torch.parallel.multihost import process_index
     from gdmcf_torch.parallel.sharding import local_block, shard_of
     from gdmcf_torch.train import checkpoint as C
+    from gdmcf_torch.train import graphs as G
     from gdmcf_torch.train.trainer import Trainer
 
     spe = int(os.environ["FAULT_STEPS"])
@@ -4438,21 +4642,35 @@ def fault_cli(argv) -> int:
                    path=os.path.relpath(self._path(out.step), ckpt_dir))
         return out
 
-    step = Trainer.train_step
+    loss_and_grads, update = Trainer.loss_and_grads, Trainer._update
 
-    def first_step(self, *a, **kw):
-        out = step(self, *a, **kw)
-        if not seen["first"]:
+    def kept_loss(self, *a, **kw):
+        out = loss_and_grads(self, *a, **kw)
+        seen["loss"] = out[0]
+        return out
+
+    def first_step(self, state, *a, **kw):
+        # the first AdamW update, a single step's or the first of an eager
+        # fused group (a group is captured only after one has run)
+        update(self, state, *a, **kw)
+        if not seen["first"] and \
+                not torch.cuda.is_current_stream_capturing():
             torch.cuda.synchronize()
             seen["first"] = True
             fault_emit(event="first_step", rank=process_index(),
-                       step=out[0].step, t=time.time(),
-                       loss=float(out[1]),
+                       step=int(state.opt_state.count), t=time.time(),
+                       loss=float(seen["loss"]),
                        launches=FA.LAUNCHES["fused_adamw"])
             if stop:
                 fault_emit(event="done", rank=process_index())
                 os._exit(0)
-        return out
+
+    captured = G.TrainerGraphs._captured
+
+    def timed_capture(self, g):
+        fault_emit(event="capture", rank=process_index(),
+                   kind=type(g).__name__, s=g.capture_s, t=time.time())
+        return captured(self, g)
 
     train_epoch = Trainer.train_epoch
 
@@ -4493,7 +4711,9 @@ def fault_cli(argv) -> int:
     C.Checkpointer.save = timed_save
     C.Checkpointer._write = timed_write
     C.Checkpointer.restore = checked_restore
-    Trainer.train_step = first_step
+    Trainer.loss_and_grads = kept_loss
+    Trainer._update = first_step
+    G.TrainerGraphs._captured = timed_capture
     Trainer.train_epoch = epoch_hook
     Trainer.evaluate = eval_hook
     cli.main(parse_args(argv))
@@ -4644,12 +4864,25 @@ def fault_one_process(root, card, csr, tmp):
         assert first["step"] == want_step + 1, first
         assert np.isfinite(first["loss"]) and first["launches"] == 13, first
         to_step = first["t"] - t_launch - rest["check_s"]
+        # train_steps_per_call 8: the first group after a relaunch runs
+        # eagerly and its graph is captured after it
+        caps = [c for c in ev if c["event"] == "capture"]
+        waited = [c for c in caps if c["t"] <= first["t"]]
+        after = [c for c in caps if c["t"] > first["t"]]
+        capture = (f"the first resumed step waited for {len(waited)} "
+                   f"captures ({sum(c['s'] for c in waited):.2f} s)"
+                   if waited else "the first resumed step waited for no "
+                   "capture (the first group runs eagerly)")
+        if after:
+            capture += (f"; captured after it: "
+                        f"{', '.join(c['kind'] for c in after)} in "
+                        f"{sum(c['s'] for c in after):.2f} s")
         restored = (f"restored step {rest['step']} (epoch {rest['epoch']}) "
                     f"from {rest['path']}, {rest['tensors']} tensors bitwise "
                     f"equal to the file read on the host (restore "
                     f"{rest['restore_s']:.2f} s, check {rest['check_s']:.2f} "
                     f"s); relaunch to the first resumed step {to_step:.2f} s "
-                    f"(the check left out)")
+                    f"(the check left out); {capture}")
         if not kill2:
             assert any(e["event"] == "done" for e in ev)
             log(f"fault (a) resume {i - 1}: {restored}; step "
@@ -4915,6 +5148,306 @@ def fault_phase(root, card, torch, csr):
             "debug_nans_step_ms_off_on": [off_ms, on_ms]}
 
 
+# phase 23: the fused calls, train_steps_per_call K train steps and
+# eval_batches_per_call K eval batches, as CUDA graphs (train/graphs.py)
+FUSED_K = 8
+FUSED_STEPS = 64               # steps from one seed, at K 1 and at K 8
+FUSED_EVAL_BATCHES = 16        # batches of phase 9's valid split
+FUSED_TIMED_GROUPS = 4         # groups (K 8) or 8 x steps (K 1) timed alone
+FUSED_OH1_ITEMS = 1_000        # OneHotMatrix 1: the graph's first items,
+#                                the round-3 width of G9's recipe ([B + n,
+#                                B + n] blocks; the whole catalog's are 36 GB)
+
+
+def host_state(torch, state):
+    """The tensors K 8 must equal bitwise, cloned on the card: parameters,
+    moments, masters, K1's count, the Lt ring, the generator's state."""
+    opt = state.opt_state
+    out = {f"params.{k}": p.detach().clone()
+           for k, p in state.params.items()}
+    for group, tensors in (("mu", opt.mu), ("nu", opt.nu),
+                           ("master", opt.master or {})):
+        out.update({f"{group}.{k}": t.clone() for k, t in tensors.items()})
+    out.update({"count": opt.count.clone(),
+                "lt.history": state.lt.history.clone(),
+                "lt.count": state.lt.count.clone(),
+                "generator": state.generator.get_state()})
+    return out
+
+
+def state_differences(torch, a, b):
+    """{name: [elements that differ, largest difference]} of two
+    ``host_state``s (empty when bitwise equal)."""
+    out = {}
+    for k in a:
+        x, y = a[k], b[k]
+        if not torch.equal(x, y):
+            d = (x.double() - y.double()).abs()
+            out[k] = [int((x != y).sum()), float(d.max())]
+    return out
+
+
+def graph_pool_bytes(torch, pool):
+    """Bytes the CUDA caching allocator holds in the graph pool ``pool``
+    (its segments in ``torch.cuda.memory_snapshot``)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def fused_run(torch, cfg, csr, k, profile_epoch=False):
+    """FUSED_STEPS steps of ``cfg`` at K ``k`` from its seed on the first
+    FUSED_STEPS x batch users, then the step times of FUSED_TIMED_GROUPS
+    more groups (K 8: each a replay, its time over 8; K 1: 8 x as many
+    single steps). Returns (trainer, state, readings, the per-step losses,
+    ``host_state`` after the FUSED_STEPS steps)."""
+    from gdmcf_torch.data.loader import epoch_batches
+    from gdmcf_torch.data.native import NativeCSR
+    from gdmcf_torch.ops import fused_adamw as FA
+    from gdmcf_torch.train.trainer import Trainer
+
+    cfg.train_steps_per_call = k
+    n = FUSED_STEPS * cfg.batch_size
+    data = NativeCSR.from_scipy(csr[:n])
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = Trainer(cfg, *csr.shape)
+    state = trainer.init_state()
+    assert trainer.fused_k("train")[0] == k
+    losses = []
+    single, group = trainer.train_step, trainer._train_group
+
+    def kept_single(*a, **kw):
+        out = single(*a, **kw)
+        losses.append(out[1].reshape(1))
+        return out
+
+    def kept_group(*a, **kw):
+        out = group(*a, **kw)
+        losses.append(out[1])
+        return out
+
+    trainer.train_step, trainer._train_group = kept_single, kept_group
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    reserved0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, total = trainer.train_epoch(state, data, np.random.default_rng(0))
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = FA.LAUNCHES["fused_adamw"]
+    peak = torch.cuda.max_memory_allocated() - base
+    reserved = torch.cuda.memory_reserved() - reserved0
+    assert state.step == FUSED_STEPS and np.isfinite(total)
+    snap = host_state(torch, state)
+    r = dict(epoch_s=epoch_s, total=total, launches=launches,
+             peak_gib=peak / 2**30, reserved_gib=reserved / 2**30)
+    trainer.train_step, trainer._train_group = single, group
+    g = trainer._graphs
+    if g is not None:
+        (tg,) = g.train_graphs.values()
+        r.update(capture_s=tg.capture_s, replays=tg.replays,
+                 captured=tg.launches["fused_adamw"],
+                 pool_gib=graph_pool_bytes(torch, g.pool) / 2**30)
+    # step times of further steps (after the compared ones)
+    batches = list(epoch_batches(data, cfg.batch_size,
+                                 np.random.default_rng(1), packed=True))
+    ms = []
+    for j in range(FUSED_TIMED_GROUPS):
+        chunk = batches[j * FUSED_K:(j + 1) * FUSED_K]
+        torch.cuda.synchronize()
+        if k > 1:
+            t0 = time.perf_counter()
+            trainer._train_group(state, chunk)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3 / k)
+            continue
+        for x, idx in chunk:
+            t0 = time.perf_counter()
+            trainer.train_step(state, torch.from_numpy(x),
+                               torch.from_numpy(idx))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    r["step_ms_p50"] = float(np.percentile(ms, 50))
+    if profile_epoch:
+        # one more epoch of FUSED_STEPS steps under the profiler: its first
+        # group eager, the others replays; K1 counted by the wrapper
+        # against the trace
+        from torch.profiler import ProfilerActivity, profile
+        FA.reset_launch_counts()
+        before = tg.replays
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trainer.train_epoch(state, data, np.random.default_rng(2))
+            torch.cuda.synchronize()
+        r["profiled_launches"] = FA.LAUNCHES["fused_adamw"]
+        r["profiler_adamw"] = sum(
+            e.count for e in prof.key_averages()
+            if "_adamw_kernel" in e.key)
+        r["profiled_replays"] = tg.replays - before
+    return trainer, state, r, torch.cat(losses), snap
+
+
+def fused_train(root, card, torch, csr, backbone):
+    """Phase 23's training for ``backbone`` (flagship or DNN at the
+    Amazon-Book width, or oh1: G9's OneHotMatrix 1 DNN, float32, on
+    ``csr``'s FUSED_OH1_ITEMS items): K 1
+    (eager steps) and K 8 (the first group eager, then its CUDA graph)
+    from one seed over the same batches, in turns (1, 8, 8, 1), every run
+    bitwise equal to the first after FUSED_STEPS steps; the readings of
+    each. A difference between the two K 1 runs would be an eager op's,
+    not the graph's. Returns the readings of the second K 8 run."""
+    from gdmcf_torch.config import load_config
+
+    over = {"device": "cuda"}
+    if backbone == "DNN":
+        over.update(backbone="DNN", OneHotMatrix=0)
+    cfg = (option_config("oh1", device="cuda") if backbone == "oh1" else
+           load_config(os.path.join(root, "configs", "amazonOneEmbGcn.yaml"),
+                       over))
+    order = (1, FUSED_K, FUSED_K, 1)
+    runs = []
+    for j, k in enumerate(order):
+        trainer, state, r, losses, snap = fused_run(
+            torch, cfg, csr, k,
+            profile_epoch=j == 2 and backbone == "flagship")
+        n_tensors = len(state.params)
+        del trainer, state
+        if runs:   # held against the first run, then let go
+            diff = state_differences(torch, runs[0][2], snap)
+            if not torch.equal(runs[0][1], losses):
+                diff["losses"] = [int((runs[0][1] != losses).sum()), float(
+                    (runs[0][1] - losses).abs().max())]
+            r["differs_from_first"] = diff
+            snap = None
+        runs.append((r, losses, snap))
+    r1, l1, s1 = runs[0]
+    rs = [r for r, _, _ in runs]
+    r8 = rs[2]
+    scale = 272 / FUSED_STEPS
+    log(f"fused {backbone}: {FUSED_STEPS} steps in turns at K "
+        f"{list(order)}: "
+        + ", ".join(f"{r['epoch_s']:.3f}" for r in rs)
+        + f" s (at K {FUSED_K} the first group eager, capture "
+        f"{rs[1]['capture_s']:.3f} / {r8['capture_s']:.3f} s, then "
+        f"{r8['replays']} replays); an epoch scaled to 272 steps "
+        + " / ".join(f"{r['epoch_s'] * scale:.2f}" for r in rs)
+        + " s; step p50 "
+        + " / ".join(f"{r['step_ms_p50']:.3f}" for r in rs)
+        + f" ms (at K {FUSED_K} a replay over {FUSED_K}); peak memory over "
+        f"the run's start "
+        + " / ".join(f"{r['peak_gib']:.3f}" for r in rs)
+        + " GiB, reserved growth "
+        + " / ".join(f"{r['reserved_gib']:.3f}" for r in rs)
+        + f" GiB, the graph pool {rs[1]['pool_gib']:.3f} / "
+        f"{r8['pool_gib']:.3f} GiB; K1 launches "
+        + " / ".join(str(r["launches"]) for r in rs)
+        + f" (K {FUSED_K}: the eager group's {r8['captured']} + "
+        f"{r8['captured']} captured x {r8['replays']} replays) [{card}]")
+    for r in rs:
+        assert r["launches"] == n_tensors * FUSED_STEPS, r
+    for r in rs[1:3]:
+        assert r["launches"] == r["captured"] * (r["replays"] + 1), r
+    diffs = {k: r["differs_from_first"] for k, r in zip(
+        ("K 8 (run 2)", "K 8 (run 3)", "K 1 (run 4)"), rs[1:])}
+    if any(diffs.values()):
+        log(f"fused {backbone}: differences from the first K 1 run "
+            f"{diffs} (a K 1 run's difference is an eager op's)")
+    assert not any(diffs.values()), \
+        f"fused {backbone}: a run is not the first K 1 run bitwise"
+    log(f"fused {backbone}: both K {FUSED_K} runs and the second K 1 run "
+        f"bitwise equal to the first K 1 run after {FUSED_STEPS} steps: "
+        f"{len(s1)} tensors (parameters, moments, masters, count, Lt ring, "
+        f"generator state), the {len(l1)} losses")
+    if "profiler_adamw" in r8:
+        log(f"fused {backbone}: a further epoch of {FUSED_STEPS} steps "
+            f"under torch.profiler: K1 counted {r8['profiled_launches']} "
+            f"(the eager first group's {r8['captured']} + captured "
+            f"{r8['captured']} x {r8['profiled_replays']} replays), the "
+            f"trace's _adamw_kernel launches {r8['profiler_adamw']} "
+            f"[{card}]")
+        assert r8["profiler_adamw"] == r8["profiled_launches"] == \
+            r8["captured"] * (r8["profiled_replays"] + 1), r8
+        assert r8["profiled_replays"] == FUSED_STEPS // FUSED_K - 1, r8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r8
+
+
+def fused_eval(root, card, torch, csr):
+    """Phase 23's evaluation: ``evaluate_streaming`` of FUSED_EVAL_BATCHES
+    batches of phase 9's valid split at ``eval_batches_per_call`` 1 and 8
+    (twice each: the second K 8 call replays every group): the metric
+    sums bitwise equal; the seconds of each call."""
+    from gdmcf_torch.config import load_config
+    from gdmcf_torch.data.native import NativeCSR
+    from gdmcf_torch.ops import metrics as M
+    from gdmcf_torch.train.trainer import Trainer
+
+    train, valid, _ = amazon_splits(csr)
+    cfg = load_config(os.path.join(root, "configs", "amazonOneEmbGcn.yaml"),
+                      {"device": "cuda", "host_dense": False})
+    n = FUSED_EVAL_BATCHES * cfg.batch_size
+    train_n = NativeCSR.from_scipy(train[:n])
+    valid_n = NativeCSR.from_scipy(valid[:n], strict=False)
+    trainer = Trainer(cfg, N_USER, N_ITEM)
+    state = trainer.init_state()
+    sums, secs = {}, {}
+    result = M.MetricAccumulator.result
+
+    def kept(self):
+        out = result(self)
+        sums.setdefault(trainer.cfg.eval_batches_per_call, []).append(
+            (self.sums.copy(), self.n_users))
+        return out
+
+    M.MetricAccumulator.result = kept
+    try:
+        for k in (1, FUSED_K, 1, FUSED_K):
+            cfg.eval_batches_per_call = k
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.evaluate_streaming(state, [train_n], valid_n, [train_n],
+                                       cfg.topN)
+            torch.cuda.synchronize()
+            secs.setdefault(k, []).append(time.perf_counter() - t0)
+    finally:
+        M.MetricAccumulator.result = result
+    ref, users = sums[1][0]
+    assert users == n
+    equal = all(np.array_equal(a, ref) and u == users
+                for v in sums.values() for a, u in v)
+    graphs = trainer.graphs()
+    caps = [g.capture_s for g in graphs.eval_graphs.values()]
+    assert len(caps) == 1, caps   # one group shape: 8 batches of 400
+    log(f"fused eval: evaluate_streaming of {FUSED_EVAL_BATCHES} batches "
+        f"({n} users of phase 9's valid split): eval_batches_per_call 1 "
+        f"{secs[1][0]:.3f} / {secs[1][1]:.3f} s, {FUSED_K} "
+        f"{secs[FUSED_K][0]:.3f} s (the first group eager, capture "
+        f"{sum(caps):.3f} s) / {secs[FUSED_K][1]:.3f} s (every group a "
+        f"replay); the metric sums of the four calls bitwise equal {equal} "
+        f"[{card}]")
+    assert equal, sums
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(eval_s={str(k): v for k, v in secs.items()},
+                eval_capture_s=sum(caps))
+
+
+def fused_phase(root, card, torch, csr):
+    """Phase 23: the fused calls at the Amazon-Book width. Returns its
+    readings, by backbone."""
+    t0 = time.perf_counter()
+    out = {b: fused_train(root, card, torch, csr, b)
+           for b in ("flagship", "DNN")}
+    out["oh1"] = fused_train(root, card, torch,
+                             csr[:, :FUSED_OH1_ITEMS].tocsr(), "oh1")
+    out["eval"] = fused_eval(root, card, torch, csr)
+    log(f"fused phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -4953,10 +5486,17 @@ def main() -> int:
                         help="run only phase 22 (recovery from a killed "
                              "process, one process and a mesh, and "
                              "debug_nans on the card)")
-    parser.add_argument("--mesh-diagnostic", action="store_true",
-                        help="print what phase 19's parameter limits rest "
-                             "on: GEMM rounding by shape, TF32 and planted "
-                             "faults on (2,2)")
+    parser.add_argument("--fused-phase", action="store_true",
+                        help="run only phase 23 (train_steps_per_call and "
+                             "eval_batches_per_call as CUDA graphs against "
+                             "single steps, the flagship and DNN)")
+    parser.add_argument("--mesh-diagnostic", nargs="?", const="all",
+                        choices=("all", "transformer"), default=None,
+                        help="print what phase 19's and phase 21's "
+                             "parameter limits rest on: the transformer's "
+                             "elements past them on (2,1), GEMM rounding by "
+                             "shape, TF32 and planted faults on (2,2); "
+                             "'transformer': the transformer's part alone")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4974,7 +5514,8 @@ def main() -> int:
     if args.mesh_diagnostic:
         FA.build_kernel()
         log(card)
-        mesh_diagnostic(root, card, torch, power_law_graph(0))
+        mesh_diagnostic(root, card, torch, power_law_graph(0),
+                        transformer_only=args.mesh_diagnostic == "transformer")
         log(f"chip_smoke (mesh diagnostic only): "
             f"{time.perf_counter() - t_start:.1f} s")
         log(card)
@@ -5005,6 +5546,17 @@ def main() -> int:
         fault = fault_phase(root, card, torch, power_law_graph(0))
         log(f"fault launches {json.dumps(fault)}")
         log(f"chip_smoke (phase 22 only): "
+            f"{time.perf_counter() - t_start:.1f} s")
+        log(card)
+        return 0
+    if args.fused_phase:
+        FA.build_kernel()
+        log(card)
+        log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+            f"{torch.cuda.get_device_name(0)}")
+        fused = fused_phase(root, card, torch, power_law_graph(0))
+        log(f"fused readings {json.dumps(fused)}")
+        log(f"chip_smoke (phase 23 only): "
             f"{time.perf_counter() - t_start:.1f} s")
         log(card)
         return 0
@@ -5201,12 +5753,19 @@ def main() -> int:
 
         # 22. recovery from a killed process; debug_nans on the card
         entry.update(fault_phase(root, card, torch, csr))
+
+        # 23. the fused calls as CUDA graphs against single steps
+        fused = fused_phase(root, card, torch, csr)
+        entry["launches_fused_phase"] = {
+            b: fused[b]["launches"] for b in ("flagship", "DNN", "oh1")}
+        entry["launches_fused_profiled_epoch"] = fused["flagship"][
+            "profiled_launches"]
         del csr
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    # 23. results
-    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of phases 1-22")
+    # results
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of phases 1-23")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

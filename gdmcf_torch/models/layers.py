@@ -220,11 +220,13 @@ def nt_xent_loss(z1: torch.Tensor, z2: torch.Tensor, temperature: float = 0.1,
     impl = _resolve_ntxent_impl(z1.shape[0])
     if impl == "remat":
         # the [B, B] softmax recomputed in the backward instead of stored
-        # (the JAX package's jax.checkpoint of the core)
+        # (the JAX package's jax.checkpoint of the core). The core draws
+        # nothing, so no RNG state is kept: reading the CUDA RNG state is
+        # not allowed while a CUDA graph captures the step
         from torch.utils.checkpoint import checkpoint
 
         return checkpoint(nt_xent_softmax_core, z1, z2, temperature, eps,
-                          use_reentrant=False)
+                          use_reentrant=False, preserve_rng_state=False)
     if impl == "lse":
         # softmax rows sum to 1, so the off-diagonal mass is 1 - diag
         sim = (z1 @ z2.T) / temperature

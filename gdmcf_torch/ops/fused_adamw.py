@@ -39,7 +39,10 @@ per tensor.
 ``lr``, ``c1 = 1 - b1^count`` and ``c2 = 1 - b2^count`` reach the kernel as
 a float32 device tensor [3], computed on the device as the JAX package
 computes them (float32 powers of the step count): no recompile and no
-host sync per step. Division and square root use the correctly rounded
+host sync per step. ``lr`` is a host float or a 0-d float32 device tensor:
+the Trainer's fused call (``train/graphs.py``) captures K steps as a CUDA
+graph, so each step reads its lr from a [K] device vector written before
+every replay instead of a value frozen at capture. Division and square root use the correctly rounded
 ``div_rn``/``sqrt_rn`` (Triton's default f32 ``/`` and ``sqrt`` are
 approximate). The compiler may contract ``b1 mu + (1 - b1) g`` into one
 fused multiply-add, which moves a moment by one float32 ulp against plain
@@ -49,6 +52,13 @@ Which path runs is decided by the tensors' device alone: CUDA tensors
 launch the kernel or raise, CPU tensors take ``adamw_reference``. Triton is
 imported, and its cache set to ``gdmcf_torch/_build/triton``, only when a
 CUDA tensor first reaches the kernel.
+
+Launch counts under CUDA graphs: ``LAUNCHES`` counts the kernel's runs. A
+call made while the current stream captures a graph runs no kernel: it
+adds to ``CAPTURED`` instead, the graph keeps the difference of
+``CAPTURED`` across its capture, and every replay adds that to
+``LAUNCHES`` (``add_replays``). So ``LAUNCHES`` is the eager launches
+plus the captured launches times the replays, what a profiler counts.
 """
 
 from __future__ import annotations
@@ -65,8 +75,10 @@ BLOCK = 2048        # elements per program
 NUM_WARPS = 8       # 8 elements a thread
 
 # launches since the last reset_launch_counts(); the wrapper adds one
-# exactly where it launches the kernel
+# exactly where it launches the kernel, a graph's replay its captured ones
 LAUNCHES = {"fused_adamw": 0, "fused_adamw_master": 0}
+# calls recorded into a CUDA graph under capture (no kernel ran)
+CAPTURED = {"fused_adamw": 0, "fused_adamw_master": 0}
 
 _jit = None
 tl = None   # triton.language, bound when the kernel is first built
@@ -75,6 +87,22 @@ tl = None   # triton.language, bound when the kernel is first built
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _count(name: str) -> None:
+    """One launch of ``name`` on the current stream: a run, or under graph
+    capture a recorded launch."""
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[name] += 1
+    else:
+        LAUNCHES[name] += 1
+
+
+def add_replays(captured: Mapping[str, int], replays: int = 1) -> None:
+    """Count ``replays`` replays of a graph that recorded ``captured``
+    launches (its difference of ``CAPTURED`` across the capture)."""
+    for name, n in captured.items():
+        LAUNCHES[name] += n * replays
 
 
 class FusedAdamWState(NamedTuple):
@@ -106,12 +134,17 @@ def fused_adamw_init(params: Mapping[str, torch.Tensor],
                 for k, p in params.items() if p.dtype == torch.bfloat16})
 
 
-def step_scalars(count: torch.Tensor, lr: float, b1: float = 0.9,
+def step_scalars(count: torch.Tensor, lr, b1: float = 0.9,
                  b2: float = 0.999) -> torch.Tensor:
     """float32 [lr, c1, c2] on count's device for the step that makes
-    ``count`` steps: c1 = 1 - b1^count, c2 = 1 - b2^count in float32."""
+    ``count`` steps: c1 = 1 - b1^count, c2 = 1 - b2^count in float32.
+    ``lr``: a host float, or a 0-d float32 tensor on count's device (read
+    when the step runs, as a graph's replay needs)."""
     cf = count.to(torch.float32)
-    lr_t = torch.full((), lr, dtype=torch.float32, device=count.device)
+    if isinstance(lr, torch.Tensor):
+        lr_t = lr.to(count.device, torch.float32).reshape(())
+    else:
+        lr_t = torch.full((), lr, dtype=torch.float32, device=count.device)
     return torch.stack([lr_t, 1.0 - b1 ** cf, 1.0 - b2 ** cf])
 
 
@@ -302,7 +335,7 @@ def adamw_update_(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
         return
     _check(p, g, mu, nu, c)
     _launch(p, g, mu, nu, None, c, b1, b2, eps, wd)
-    LAUNCHES["fused_adamw"] += 1
+    _count("fused_adamw")
 
 
 def adamw_master_update_(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
@@ -326,19 +359,20 @@ def adamw_master_update_(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
         return
     _check(p, g, mu, nu, c, master)
     _launch(p, g, mu, nu, master, c, b1, b2, eps, wd)
-    LAUNCHES["fused_adamw_master"] += 1
+    _count("fused_adamw_master")
 
 
 def fused_adamw_apply(params: Mapping[str, torch.Tensor],
                       grads: Mapping[str, torch.Tensor],
-                      state: FusedAdamWState, *, lr: float,
+                      state: FusedAdamWState, *, lr,
                       weight_decay: float = 0.0, b1: float = 0.9,
                       b2: float = 0.999, eps: float = 1e-8
                       ) -> FusedAdamWState:
     """One AdamW step over every tensor of ``params``, in place (the JAX
     package returns new arrays; updating in place saves a copy of the
     model): the master form for a tensor with a master, the plain form
-    otherwise. Returns the state with the step counted."""
+    otherwise. ``lr``: a float or a 0-d float32 device tensor
+    (``step_scalars``). Returns the state with the step counted."""
     count = state.count + 1
     c = step_scalars(count, lr, b1, b2)
     masters = state.master or {}

@@ -13,11 +13,24 @@ on the device) and ``evaluate_streaming`` (batches assembled from
 is the reference's main loop: train, evaluate every ``eval_every`` epochs,
 select on NDCG@topN[1], checkpoint, early-stop, resume.
 
-The train step updates the parameters, the moments and the Lt ring in
-place and returns the loss as a device tensor: nothing in a step waits for
-the host. The learning rate of a schedule is a function of the host's step
-count, so it reaches the AdamW kernel through the same device scalar as a
-constant one.
+The train step updates the parameters, the moments, the step count and
+the Lt ring in place (the tensors of the ``TrainState`` stay the same
+objects) and returns the loss as a device tensor: nothing in a step waits
+for the host. The learning rate of a schedule is a function of the host's
+step count, so it reaches the AdamW kernel through the same device scalar
+as a constant one.
+
+The fused calls, the counterparts of the JAX package's ``_train_multi`` and
+``_eval_multi``: ``train_epoch`` groups ``train_steps_per_call`` batches
+(``train_steps``: K steps over stacked batches, exactly the math of K
+``train_step`` calls) and the evaluations group ``eval_batches_per_call``
+batches, with the JAX package's rules for a trailing partial batch. On the
+card a group is a CUDA graph (``train/graphs.py``): an epoch's first group
+runs eagerly, the graph is captured after the first one and replayed for
+every later group; on the CPU a group runs as its steps one after
+another, the plain version. On a mesh
+(gloo collectives cannot be captured) and under ``debug_nans`` (a host
+check after every step) K is 1: ``fused_k`` decides before any capture.
 
 ``compute_dtype`` maps to the matmul precision on the GPU, for training and
 eval: ``bfloat16`` (the default) is the JAX package's "default" precision,
@@ -79,6 +92,10 @@ from gdmcf_torch.parallel.mesh import axis_group, axis_index, axis_size
 from gdmcf_torch.parallel.multihost import is_main_process, process_count
 from gdmcf_torch.train.state import (TrainState, cast_params_,
                                      create_train_state)
+
+# the knobs of the fused calls, by what they group
+_FUSE_KNOBS = {"train": "train_steps_per_call",
+               "eval": "eval_batches_per_call"}
 
 
 @contextlib.contextmanager
@@ -188,6 +205,10 @@ class Trainer:
         # across evaluations (matched by ``is``, at most 4 entries each)
         self._eval_cache = []
         self._gt_cache = []
+        # the CUDA graphs of the fused calls (train/graphs.py), made at the
+        # first group on the card; the evaluations' generator
+        self._graphs = None
+        self._eval_gen = None
 
     def init_state(self) -> TrainState:
         return create_train_state(self.cfg, self.model, self.device)
@@ -252,6 +273,46 @@ class Trainer:
                     f"and {sizes[:, 1].tolist()} ids: the global batch must "
                     f"divide evenly over mesh dp={dp}")
         return self._to_device(x), self._to_device(idx)
+
+    def fused_k(self, kind: str):
+        """(K, why K is 1 or None) of the fused ``kind`` call ("train" or
+        "eval"): the config's ``train_steps_per_call`` or
+        ``eval_batches_per_call``, or 1 on a mesh (gloo collectives cannot
+        be captured in a CUDA graph) and under ``debug_nans`` (a host check
+        after every step); the JAX package fuses both."""
+        k = max(int(getattr(self.cfg, _FUSE_KNOBS[kind])), 1)
+        if k > 1 and self.mesh is not None:
+            return 1, "a mesh: gloo collectives cannot be captured"
+        if k > 1 and self.cfg.debug_nans:
+            return 1, "debug_nans: a host check after every step"
+        return k, None
+
+    def unfused_line(self) -> Optional[str]:
+        """``fit``'s log line when a fused call the config asks for runs one
+        step at a time (``fused_k``), where the JAX package fuses; None
+        otherwise."""
+        parts, why = [], None
+        for kind, knob in _FUSE_KNOBS.items():
+            _, why_k = self.fused_k(kind)
+            if why_k is not None:
+                parts.append(f"{knob} {getattr(self.cfg, knob)}")
+                why = why_k
+        if not parts:
+            return None
+        return f"{' and '.join(parts)} run one step at a time: {why}"
+
+    def graphs(self):
+        """The Trainer's CUDA graphs of the fused calls (card only)."""
+        if self._graphs is None:
+            from gdmcf_torch.train.graphs import TrainerGraphs
+
+            self._graphs = TrainerGraphs(self)
+        return self._graphs
+
+    def _lr_vector(self, step: int, k: int) -> np.ndarray:
+        """float32 [k]: ``_lr_at`` of the k steps from ``step`` on."""
+        return np.asarray([self._lr_at(step + j) for j in range(k)],
+                          np.float32)
 
     def _lr_at(self, step: int) -> float:
         """Learning rate of the step that starts at ``step`` completed
@@ -386,7 +447,18 @@ class Trainer:
                     new_lt: LtState) -> TrainState:
         """The optional global-norm clip (float32 squares; each gradient
         keeps its parameter's type), then AdamW in place: K1's master form
-        for a bfloat16-stored tensor."""
+        for a bfloat16-stored tensor. The step count and the Lt ring are
+        written into the state's own tensors."""
+        self._update(state, grads, new_lt, self._lr_at(state.step))
+        if self.cfg.debug_nans:
+            self._check_state(state)
+        state.step += 1
+        return state
+
+    def _update(self, state: TrainState, grads: Dict[str, torch.Tensor],
+                new_lt: LtState, lr) -> None:
+        """``apply_grads`` at ``lr`` (a float or a 0-d device tensor)
+        without the host's step count: what a CUDA graph captures."""
         if self.cfg.grad_clip_norm > 0.0:
             squares = [torch.sum(g.float() ** 2) for g in grads.values()]
             if self.mesh is not None:
@@ -404,14 +476,12 @@ class Trainer:
                 self.cfg.grad_clip_norm / torch.clamp_min(gn, 1e-12), 1.0)
             grads = {k: (g.float() * scale).to(g.dtype)
                      for k, g in grads.items()}
-        state.opt_state = fused_adamw_apply(
-            state.params, grads, state.opt_state,
-            lr=self._lr_at(state.step), weight_decay=self.cfg.weight_decay)
-        if self.cfg.debug_nans:
-            self._check_state(state)
-        state.lt = new_lt
-        state.step += 1
-        return state
+        opt = state.opt_state
+        counted = fused_adamw_apply(state.params, grads, opt, lr=lr,
+                                    weight_decay=self.cfg.weight_decay)
+        opt.count.copy_(counted.count)
+        state.lt.history.copy_(new_lt.history)
+        state.lt.count.copy_(new_lt.count)
 
     @staticmethod
     def _check_state(state: TrainState) -> None:
@@ -431,16 +501,70 @@ class Trainer:
         loss, grads, new_lt = self.loss_and_grads(state, x, index, draws)
         return self.apply_grads(state, grads, new_lt), loss
 
+    def train_steps(self, state: TrainState, xs: torch.Tensor,
+                    idxs: torch.Tensor, draws=None):
+        """K optimizer steps over stacked batches (xs [K, B, n_item] rows
+        or bit-packed, idxs [K, B]), the counterpart of the JAX package's
+        ``_train_multi``: exactly the math of K ``train_step`` calls, with
+        the same draws in the same order (``draws``: a list of K
+        ``TrainDraws`` or None). Runs eagerly: on the CPU it is the plain
+        version of a fused group, on the card the group that runs before a
+        capture. Returns (state, the losses [K])."""
+        k = xs.shape[0]
+        dev = self.device
+        lr = torch.from_numpy(self._lr_vector(state.step, k))
+        losses = self.steps_body(
+            state, xs.to(dev, non_blocking=True),
+            idxs.to(dev, non_blocking=True),
+            lr.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda"
+            else lr, draws)
+        state.step += k
+        return state, losses
+
+    def steps_body(self, state: TrainState, xs: torch.Tensor,
+                   idxs: torch.Tensor, lr: torch.Tensor,
+                   draws=None) -> torch.Tensor:
+        """The K steps of ``train_steps`` on device tensors, step j at
+        ``lr[j]``, every state tensor updated in place; returns the losses
+        [K]. Reads nothing from the host and leaves ``state.step`` alone,
+        so a CUDA graph captures it as it is."""
+        losses = []
+        for j in range(xs.shape[0]):
+            loss, grads, new_lt = self.loss_and_grads(
+                state, xs[j], idxs[j], None if draws is None else draws[j])
+            self._update(state, grads, new_lt, lr[j])
+            losses.append(loss)
+            del grads
+        return torch.stack(losses)
+
+    def _train_group(self, state: TrainState, batches, first=False):
+        """One fused group of host batches [(x, idx)]: one CUDA graph
+        replay on the card (``TrainerGraphs.train``; ``first``, an epoch's
+        first group, runs eagerly), its steps one after another on the
+        CPU. Returns (state, the losses [K])."""
+        xs = np.stack([b[0] for b in batches])
+        idxs = np.stack([b[1] for b in batches])
+        if self.device.type == "cuda":
+            return self.graphs().train(state, xs, idxs, eager=first)
+        return self.train_steps(state, torch.from_numpy(xs),
+                                torch.from_numpy(idxs))
+
     def train_epoch(self, state: TrainState, dataset,
                     rng: np.random.Generator):
         """One pass over ``dataset`` (``DiffusionDataset`` or
         ``NativeCSR``) in shuffled batches of ``batch_size``; returns
         (state, the sum of the step losses). The losses stay on the device
-        until the epoch ends. ``train_steps_per_call`` needs no grouping
-        here: K fused steps of the JAX package are K single steps. The
-        batches are assembled ``prefetch_batches`` ahead on a host thread
+        until the epoch ends. The batches are assembled
+        ``prefetch_batches`` ahead on a host thread
         (``data.prefetch.prefetched``; 0 assembles each in turn), in the
         same order either way.
+
+        ``train_steps_per_call`` K > 1 (``fused_k``) groups the batches as
+        the JAX package's ``train_epoch`` does: each K in a row go to
+        ``_train_group``; a trailing partial batch, which cannot stack
+        with them, first drains the pending ones as single steps; fewer
+        than K left at the end run as single steps. Every grouping gives
+        the same steps, draws and losses as K = 1.
 
         On a mesh each dp group trains on its own ``RowSlice`` of the rows
         (``local_row_range``) with its 1/dp block of every global batch,
@@ -471,7 +595,18 @@ class Trainer:
                     "assembled (reduce batch_size or mesh dp)")
         pack = (self.cfg.wire_format == "packed"
                 and getattr(dataset, "binary", False))
-        losses = []
+        k, _ = self.fused_k("train")
+        losses, pending = [], []
+
+        def single(state, x, idx):
+            if self.mesh is not None:   # this rank's dp block, checked
+                x_t, idx_t = self._put_batch(x, idx)
+            else:
+                x_t, idx_t = torch.from_numpy(x), torch.from_numpy(idx)
+            state, loss = self.train_step(state, x_t, idx_t)
+            losses.append(loss.reshape(1))
+            return state
+
         # the host assembles the next batches on a thread of its own
         # (prefetch_batches ahead); the device copies stay on this one
         for x, idx in prefetched(
@@ -480,13 +615,24 @@ class Trainer:
                 depth=self.cfg.prefetch_batches):
             if offset:
                 idx = idx + np.int32(offset)   # slice position -> user id
-            if self.mesh is not None:   # this rank's dp block, checked
-                x_t, idx_t = self._put_batch(x, idx)
-            else:
-                x_t, idx_t = torch.from_numpy(x), torch.from_numpy(idx)
-            state, loss = self.train_step(state, x_t, idx_t)
-            losses.append(loss)
-        total = float(torch.stack(losses).sum()) if losses else 0.0
+            if pending and x.shape != pending[0][0].shape:
+                # a trailing partial batch cannot stack with the group:
+                # the pending batches run as single steps before it
+                for b in pending:
+                    state = single(state, *b)
+                pending.clear()
+            pending.append((x, idx))
+            if len(pending) == k:
+                if k == 1:
+                    state = single(state, x, idx)
+                else:
+                    state, ls = self._train_group(state, pending,
+                                                  first=not losses)
+                    losses.append(ls)
+                pending.clear()
+        for b in pending:   # fewer than K left: single steps
+            state = single(state, *b)
+        total = float(torch.cat(losses).sum()) if losses else 0.0
         return state, total
 
     # -- eval --------------------------------------------------------------
@@ -585,10 +731,36 @@ class Trainer:
         return acc.result()
 
     def _eval_generator(self, generator):
+        """The evaluation's generator: the caller's, or the Trainer's own
+        seeded anew with ``random_seed + 12345`` (one object, since an eval
+        graph is bound to the generator it was captured with)."""
         if generator is not None:
             return generator
-        return torch.Generator(self.device).manual_seed(
-            self.cfg.random_seed + 12345)
+        if self._eval_gen is None:
+            self._eval_gen = torch.Generator(self.device)
+        return self._eval_gen.manual_seed(self.cfg.random_seed + 12345)
+
+    def _eval_group(self, rows, uids, masks, top_k: int, generator):
+        """The ids [n, B, top_k] (or a list of n [B, top_k]) of a group of
+        n eval batches: stacked host arrays or lists of device tensors;
+        ``masks`` None when each batch masks with its rows. One CUDA graph
+        replay on the card (``TrainerGraphs.eval``; the ids are good until
+        the next replay), the batches one after another on the CPU."""
+        steps = self.cfg.sampling_steps
+        if self.device.type == "cuda":
+            return self.graphs().eval(rows, uids, masks, steps, top_k,
+                                      generator)
+        out = []
+        for j in range(len(rows)):
+            x, u = rows[j], uids[j]
+            if isinstance(x, np.ndarray):
+                x, u = self._put_batch(x, u, replicate=True)
+            m = x if masks is None else masks[j]
+            if isinstance(m, np.ndarray):
+                m = self._to_device(m)
+            out.append(self.eval_step(x, u, m, sampling_steps=steps,
+                                      top_k=top_k, generator=generator))
+        return out
 
     def evaluate(self, state: TrainState, eval_rows: np.ndarray,
                  gt_matrix: np.ndarray, mask_matrix: np.ndarray, topn,
@@ -604,7 +776,10 @@ class Trainer:
         the reference built without drop_last. One generator, seeded
         ``random_seed + 12345`` unless given, is consumed in batch order.
         ``state`` is accepted for the JAX signature: the port's parameters
-        are the model's own tensors.
+        are the model's own tensors. ``eval_batches_per_call`` K > 1 fuses
+        the equal-shape prefix of each window of K batches
+        (``_eval_group``), with the same draws in the same order as single
+        batches.
 
         Binary ground truth is summed on the device against a bit-packed
         cache: the rankings never leave the device and the sums come back
@@ -613,6 +788,7 @@ class Trainer:
         at the end; a batch that runs replicated (a partial one dp does not
         divide) is counted once, by the main rank."""
         cfg = self.cfg
+        k, _ = self.fused_k("eval")
         generator = self._eval_generator(generator)
         cached = self._prepare_eval_batches(eval_rows, mask_matrix,
                                             drop_last=drop_last)
@@ -622,11 +798,42 @@ class Trainer:
             gt_matrix, cached, eval_rows, mask_matrix, drop_last)
         acc = MetricAccumulator(topn)
         all_idx, kept_users = [], []
-        for i, (start, rows, uids, mask, sharded) in enumerate(cached):
-            idx = self.eval_step(
-                rows, uids, mask, sampling_steps=cfg.sampling_steps,
-                top_k=top_k, generator=generator,
-                block=self.row_block(rows.shape[0]) if sharded else None)
+
+        def shape(c):   # (rows, mask, whether the mask is the rows)
+            return c[1].shape, c[3].shape, c[3] is c[1]
+
+        def ranked():
+            """(batch number, its top-k ids) in batch order; a fused
+            group's ids are consumed before the next group runs. A group
+            is the equal-shape prefix of a window of K batches (the JAX
+            package's rule: a trailing partial batch trims the group, it
+            does not un-fuse the full ones)."""
+            i = 0
+            while i < len(cached):
+                group = cached[i:i + k]
+                n = 1
+                while n < len(group) and shape(group[n]) == shape(group[0]):
+                    n += 1
+                if n > 1:
+                    group = group[:n]
+                    same = group[0][3] is group[0][1]
+                    ids = self._eval_group(
+                        [c[1] for c in group], [c[2] for c in group],
+                        None if same else [c[3] for c in group], top_k,
+                        generator)
+                    for j in range(n):
+                        yield i + j, ids[j]
+                else:
+                    _, rows, uids, mask, sharded = cached[i]
+                    yield i, self.eval_step(
+                        rows, uids, mask, sampling_steps=cfg.sampling_steps,
+                        top_k=top_k, generator=generator,
+                        block=(self.row_block(rows.shape[0]) if sharded
+                               else None))
+                i += n
+
+        for i, idx in ranked():
+            start, rows, uids, mask, sharded = cached[i]
             if use_reduce:
                 # a sharded entry holds this rank's rows: its rankings
                 # pair with the ground truth of its own users
@@ -725,8 +932,13 @@ class Trainer:
         input_csrs / mask_csrs: lists of NativeCSR whose per-row union is
         the model input / the history mask (e.g. [train] or [train,
         valid]). On a mesh as ``evaluate``: each dp group gathers, packs
-        and scores its block of a shardable batch."""
+        and scores its block of a shardable batch.
+        ``eval_batches_per_call`` K > 1 fuses as ``evaluate`` does: the
+        pending equal-shape batches run as one group when K are pending or
+        a batch of another shape comes (``_eval_group``, one host->device
+        copy of the stacked group through pinned memory)."""
         cfg = self.cfg
+        k, _ = self.fused_k("eval")
         generator = self._eval_generator(generator)
         n = len(input_csrs[0])
         bs = cfg.batch_size
@@ -752,24 +964,12 @@ class Trainer:
         starts = list(range(0, stop, bs))
         use_reduce = any(self._eval_shardable(min(s + bs, n) - s)
                          for s in starts)
-        for start in starts:
-            idx = np.arange(start, min(start + bs, n), dtype=np.int64)
-            sharded = self._eval_shardable(idx.size)
-            if sharded:
-                lo, lb = self._local_eval_slice(start, idx.size)
-                idx = np.arange(lo, lo + lb, dtype=np.int64)
-            rows = union(input_csrs, idx)
-            # the valid evaluation masks with its own input rows
-            mask = (rows if list(mask_csrs) == list(input_csrs)
-                    else union(mask_csrs, idx))
-            rows_d, idx_d = self._put_batch(rows, idx, replicate=not sharded)
-            mask_d = rows_d if mask is rows else self._to_device(mask)
-            pred = self.eval_step(
-                rows_d, idx_d, mask_d, sampling_steps=cfg.sampling_steps,
-                top_k=top_k, generator=generator,
-                block=self.row_block(idx.size) if sharded else None)
+        # the valid evaluation masks with its own input rows
+        own_mask = list(mask_csrs) == list(input_csrs)
+
+        def count(idx, sharded, pred):
             if use_reduce and not (sharded or is_main_process()):
-                continue   # a replicated batch counts once
+                return   # a replicated batch counts once
             # bit-packed ground truth and on-device sums: dense [B, n_item]
             # rows would be the largest per-batch transfer
             if packed_gt:
@@ -777,6 +977,46 @@ class Trainer:
                                pred, self.n_item)
             else:
                 acc.add(gt_csr.gather(idx), pred.cpu().numpy())
+
+        def single(idx, rows, mask, sharded=False):
+            rows_d, idx_d = self._put_batch(rows, idx, replicate=not sharded)
+            mask_d = rows_d if mask is rows else self._to_device(mask)
+            count(idx, sharded, self.eval_step(
+                rows_d, idx_d, mask_d, sampling_steps=cfg.sampling_steps,
+                top_k=top_k, generator=generator,
+                block=self.row_block(idx.size) if sharded else None))
+
+        def flush(pending):
+            if len(pending) == 1:
+                single(*pending[0])
+            elif pending:
+                ids = self._eval_group(
+                    np.stack([p[1] for p in pending]),
+                    np.stack([p[0] for p in pending]),
+                    None if own_mask else np.stack([p[2] for p in pending]),
+                    top_k, generator)
+                for j, p in enumerate(pending):
+                    count(p[0], False, ids[j])
+            pending.clear()
+
+        pending = []   # (ids, rows, mask) of a group being gathered
+        for start in starts:
+            idx = np.arange(start, min(start + bs, n), dtype=np.int64)
+            sharded = self._eval_shardable(idx.size)
+            if sharded:
+                lo, lb = self._local_eval_slice(start, idx.size)
+                idx = np.arange(lo, lo + lb, dtype=np.int64)
+            rows = union(input_csrs, idx)
+            mask = rows if own_mask else union(mask_csrs, idx)
+            if k == 1:   # always on a mesh, the only place a batch shards
+                single(idx, rows, mask, sharded)
+                continue
+            if pending and rows.shape != pending[0][1].shape:
+                flush(pending)   # a trailing partial batch runs alone
+            pending.append((idx, rows, mask))
+            if len(pending) == k:
+                flush(pending)
+        flush(pending)
         if use_reduce:
             return self._reduce_metric_acc(acc)
         return acc.result()
@@ -798,7 +1038,10 @@ class Trainer:
 
         Training starts from the module's current parameters (a new Trainer
         holds its seeded init). ``train_steps_per_call`` and
-        ``eval_batches_per_call`` are accepted and mean single steps here;
+        ``eval_batches_per_call`` fuse K steps and K eval batches
+        (``train_epoch``, ``evaluate``): CUDA graphs on the card, captured
+        in the first epoch and replayed after; a mesh and ``debug_nans``
+        run them one at a time (``fused_k``), which ``fit`` logs.
         ``prefetch_batches`` sets ``train_epoch``'s host prefetch. On a mesh
         every rank runs ``fit``; only the
         main rank logs, and checkpoints are written by it from the whole
@@ -840,6 +1083,8 @@ class Trainer:
 
         state = self.init_state()
         log(f"Number of all parameters: {self.num_params(state)}")
+        if self.unfused_line() is not None:
+            log(self.unfused_line())
 
         if checkpointer is None and cfg.ckpt_dir:
             from gdmcf_torch.train.checkpoint import Checkpointer

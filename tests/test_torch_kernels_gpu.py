@@ -346,3 +346,67 @@ def test_adamw_cuda_tensor_refuses_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         TA.adamw_update_(torch.zeros(32, 64, device=cuda).T, good["g"],
                          good["mu"], good["nu"], good["c"])
+
+
+def test_fused_call_graphs_equal_eager_steps(cuda):
+    """``train_steps_per_call`` 4 (the first group eager, then its CUDA
+    graph captured and replayed, ``train/graphs.py``) against 1 on the card
+    from one seed, two epochs: the parameters, moments, Lt, step count,
+    loss sums and the generator's state bitwise; K1's launches counted as
+    the eager ones plus captured x replays; ``evaluate_streaming`` at
+    ``eval_batches_per_call`` 4 against 1: the same ids and results."""
+    from gdmcf_torch.config import Config
+    from gdmcf_torch.data.native import NativeCSR
+    from gdmcf_torch.ops import metrics as TM
+    from gdmcf_torch.train.trainer import Trainer
+
+    n_user, n_item = 170, 300
+    rng = np.random.default_rng(0)
+    train = sp.csr_matrix((rng.random((n_user, n_item)) < 0.05
+                           ).astype(np.float32))
+    data = NativeCSR.from_scipy(train)
+    runs = []
+    for k in (1, 4):
+        cfg = Config(device="cuda", dims=[64], batch_size=16, steps=5,
+                     noise_scale=1e-4, sampling_steps=2, sampling_noise=True,
+                     train_steps_per_call=k, eval_batches_per_call=k,
+                     topN=[10, 20])
+        tr = Trainer(cfg, n_user, n_item)
+        state = tr.init_state()
+        TA.reset_launch_counts()
+        totals = [tr.train_epoch(state, data, np.random.default_rng(e))[1]
+                  for e in range(2)]
+        launches = TA.LAUNCHES["fused_adamw"]
+        ids = []
+        add = TM.MetricAccumulator.add_packed
+
+        def spy(self, gt, pred, n):
+            ids.append(pred.clone())
+            return add(self, gt, pred, n)
+
+        TM.MetricAccumulator.add_packed = spy
+        try:
+            res = [tr.evaluate_streaming(state, [data], data, [data],
+                                         [10, 20]) for _ in range(2)]
+        finally:
+            TM.MetricAccumulator.add_packed = add
+        opt = state.opt_state
+        snap = [t.detach().clone() for t in (
+            *state.params.values(), *opt.mu.values(), *opt.nu.values(),
+            opt.count, state.lt.history, state.lt.count)]
+        runs.append((snap, totals, state.step, launches, ids, res,
+                     state.generator.get_state(), tr))
+    (s1, t1, n1, l1, i1, r1, g1, _), (s4, t4, n4, l4, i4, r4, g4, tr4) = runs
+    assert n1 == n4 == 20 and t1 == t4 and r1 == r4
+    assert torch.equal(g1, g4)
+    assert all(torch.equal(a, b) for a, b in zip(s1, s4))
+    assert len(i1) == len(i4) and all(torch.equal(a, b)
+                                      for a, b in zip(i1, i4))
+    graphs = tr4.graphs()
+    train_g = list(graphs.train_graphs.values())
+    # 10 batches an epoch: groups of 4, 4 and two single steps; each
+    # epoch's first group eager (the graph captured after the first
+    # epoch's), the second replayed
+    assert len(train_g) == 1 and train_g[0].replays == 2
+    per_step = train_g[0].launches["fused_adamw"] // 4
+    assert l1 == l4 == 20 * per_step

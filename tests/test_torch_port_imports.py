@@ -229,3 +229,19 @@ def test_the_host_utility_and_parity_modules_are_among_those_checked():
     bad = [m for m in mods if m in ("jax", "triton")
            or m.startswith(("jax.", "triton.", "gdmcf_tpu", "optax"))]
     assert not bad, bad
+
+
+def test_the_graph_module_is_among_those_checked():
+    """``train/graphs.py`` (the CUDA graphs of the fused calls) is a module
+    of the package, so the check above imports it; importing it loads
+    neither JAX nor Triton and touches no CUDA device."""
+    assert "gdmcf_torch.train.graphs" in MODULES
+    mods = _modules_after(
+        "from gdmcf_torch.train.graphs import (TrainerGraphs, TrainGraph, "
+        "EvalGraph)\n"
+        "from gdmcf_torch.ops.fused_adamw import add_replays, CAPTURED\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()")
+    bad = [m for m in mods if m in ("jax", "triton") or m.startswith(
+        ("jax.", "triton.", "gdmcf_tpu"))]
+    assert not bad, bad

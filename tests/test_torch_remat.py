@@ -79,3 +79,26 @@ def test_a_flagship_step_under_remat_equals_the_softmax_form(monkeypatch):
     assert set(g1) == set(g2)
     for k in g1:
         assert torch.equal(g1[k], g2[k]), k
+
+
+def test_remat_keeps_no_rng_state_and_equals_the_form_that_did():
+    """The remat form checkpoints without keeping the RNG state (reading
+    the CUDA RNG state is not allowed while a CUDA graph captures the
+    step; the core draws nothing): at seed 1 its loss and gradients equal,
+    bitwise, the same checkpoint made with the RNG state kept."""
+    from torch.utils.checkpoint import checkpoint
+
+    z1, z2 = latents(1)
+    a = torch.tensor(z1, requires_grad=True)
+    b = torch.tensor(z2, requires_grad=True)
+    kept = checkpoint(TL.nt_xent_softmax_core, a, b, 0.1, 1e-5,
+                      use_reentrant=False, preserve_rng_state=True)
+    want = (kept.detach(), *torch.autograd.grad(kept, [a, b]))
+    old = TL._NT_XENT_IMPL
+    TL._NT_XENT_IMPL = "remat"
+    try:
+        got = port_loss_and_grads(z1, z2)
+    finally:
+        TL._NT_XENT_IMPL = old
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

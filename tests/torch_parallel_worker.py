@@ -14,6 +14,9 @@ the recovery story of tests/multihost_fault_worker.py on the port's mesh
 ``fit``: the last rank SIGKILLs itself at the top of epoch 3, once the
 epoch-2 checkpoint has committed, and the survivors must fail; then every
 rank restarts, restores epoch 2, trains epochs 3-4 and prints its metrics.
+``MODE=fused`` (tests/test_torch_fused_calls.py) runs ``fit`` on (1, 2) at
+``train_steps_per_call`` and ``eval_batches_per_call`` 1 and 4, with the
+fused groups refused, and writes ``fused_rank<r>.json``.
 
 Imports torch and the port only.
 """
@@ -239,6 +242,54 @@ def option_world():
     dist.destroy_process_group()
 
 
+def fused_world():
+    """MODE=fused: ``fit`` on a (1, 2) mesh at K 1 and 4 from one seed; a
+    mesh runs the steps one at a time, so a fused group raises."""
+    work = os.environ["WORK_DIR"]
+    multihost.initialize(device="cpu")
+    import scipy.sparse as sp
+    import torch.distributed as dist
+
+    from gdmcf_torch.config import Config
+    from gdmcf_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(7)
+    train = sp.csr_matrix((rng.random((24, 20)) < 0.3).astype(np.float32))
+    held = sp.csr_matrix((rng.random((24, 20)) < 0.1).astype(np.float32))
+    out = {"steps": [], "totals": []}
+    snaps = []
+    for k in (1, 4):
+        cfg = Config(device="cpu", mesh_dp=1, mesh_mp=2, dims=[16],
+                     emb_size=10, steps=5, noise_scale=0.01, batch_size=4,
+                     lr=1e-3, random_seed=3, epochs=1, eval_every=1,
+                     topN=[5], sampling_steps=0, train_steps_per_call=k,
+                     eval_batches_per_call=k)
+        trainer = Trainer(cfg, 24, 20)
+
+        def refuse(*a, **kw):
+            raise AssertionError("a fused group on a mesh")
+
+        trainer._train_group = refuse
+        trainer._eval_group = refuse
+        logs = []
+        state, _ = trainer.fit(train, held, held, log=logs.append)
+        out["steps"].append(state.step)
+        out["totals"].append([ln.split(" costs ")[0] for ln in logs
+                              if ln.startswith("Runing")])
+        if k > 1:
+            out["log"] = trainer.unfused_line()
+        opt = state.opt_state
+        snaps.append([t.detach().clone() for t in (
+            *state.params.values(), *opt.mu.values(), *opt.nu.values(),
+            state.lt.history)])
+    out["bitwise"] = all(torch.equal(a, b) for a, b in zip(*snaps))
+    with open(os.path.join(work, f"fused_rank{dist.get_rank()}.json"),
+              "w") as fh:
+        json.dump(out, fh)
+    multihost.sync_hosts()
+    dist.destroy_process_group()
+
+
 def serve_world():
     """MODE=serve: mesh Recommenders over the dispatch plans of the test
     (rank 0 runs each plan and stops, the others follow), the scores of
@@ -415,6 +466,8 @@ def main():
         return option_world()
     if os.environ.get("MODE") == "serve":
         return serve_world()
+    if os.environ.get("MODE") == "fused":
+        return fused_world()
     work = os.environ["WORK_DIR"]
     multihost.initialize(device="cpu")
     import torch.distributed as dist
