@@ -271,6 +271,36 @@ Phases (any failure exits non-zero):
      eval_batches_per_call 1 and 8, twice each, the metric sums bitwise
      equal; phases 6, 9, 15, 18, 20 and 22 train at the recipe's K 8
      too (the gates pin 1, as parity_run.py does);
+ 24. the JAX package's scale geometries (docs/BENCH_NOTES.md), each graph
+     drawn by this script's copy of benchmarks/scale_smoke.py's
+     synthetic_csr at seed 0: (a) the flagship with scale_smoke.py's
+     Config (emb_size 10, steps 5, noise_scale 0.01, topN [10, 20], lr
+     1e-4, sampling_steps 0, host_dense false) at 200,000 users x
+     1,000,000 items, dims [500], batch 256, K 8: the memory reckoning
+     beside the peak, train_epoch of 32 steps (finite losses, every tensor
+     moved, K1 once per tensor per step as the eager group's plus
+     captured x replays), step p50 and examples/s, a second train_epoch
+     (fit's next epoch: every group a replay), a Recommender over it
+     (phase 7's request checks, request p50/p90), evaluate_streaming of
+     4,096 users at K 8 and K 1 (the metric sums equal, the graph pool),
+     and on 512 users scale_smoke.py's two gates (streaming equal to
+     dense evaluate within 1.01e-4; the live leg, GT = the input rows, no
+     history mask, nonzero and equal on both paths); (b) the same Config
+     at 10M users x 1M items, dims [64], batch 64: 32 steps at K 8 over
+     scale_smoke.py's pool of 2 seeded batches, the mean loss of the last
+     fifth below the first fifth's, the composed gates on 128 users; then
+     5 steps in float32 on a (1, 2) mesh of two gloo ranks sharing the
+     card (5M user rows each), each started from the single process's
+     state before it, the last 4 held to one process under phase 19's rule
+     (the losses, every tensor, K1's launches), the first, AdamW's step
+     from zero moments, reported (see SCALE_B_MESH_STEPS);
+     (c) LightGCN pretraining at benchmarks/lightgcn_scale_pretrain.py's
+     defaults (1M x 200k, degree 10, alpha 1.6, degree-sorted, batch
+     65,536, D 64, 2 layers, 15 steps an epoch) for 2 epochs on the
+     block-CSR operand and on the hybrid one: finite losses equal within
+     rtol 1e-5, spmm_rows and K1 launches counted, host builds timed, then
+     spmm_rows at that operand against its plain version (phase 2's
+     tolerance), its nonzero-only bound and torch.sparse.mm;
  then the kernel JSON line, the card's name and power limit, and as the
      last line {"ok": true, "device": {...}}.
 
@@ -279,6 +309,11 @@ Phases (any failure exits non-zero):
                                            # phase 21 alone, no JSON line
     python3 chip_smoke.py --fault-phase    # phase 22 alone, no JSON line
     python3 chip_smoke.py --fused-phase    # phase 23 alone, no JSON line
+    python3 chip_smoke.py --scale-phase    # phase 24 alone, no JSON line
+    python3 chip_smoke.py --scale-width 1000
+                                           # phase 24 (a) alone at dims
+                                           # [1000], reported whether it
+                                           # fits the card or not
     python3 chip_smoke.py --precision-phase
                                            # phases 5, 6 and 20 alone: the
                                            # float32 epoch, then the
@@ -3126,61 +3161,112 @@ def mesh_config(root, tmp, **kw):
                        dict(meta["cfg"], **kw))
 
 
-def floor_bits(torch, g, s):
-    """Step ``s``'s bits of a gradient: bit s where it is under MESH_FLOOR,
-    bit 3 + s where it is exactly zero."""
+def floor_bits(torch, g, s, steps=MESH_STEPS):
+    """Step ``s``'s bits of a gradient, of a run of ``steps`` (at most 4):
+    bit s where it is under MESH_FLOOR, bit steps + s where it is exactly
+    zero."""
     tiny = (g.abs() < MESH_FLOOR).to(torch.uint8) << s
-    return tiny | ((g == 0).to(torch.uint8) << (3 + s))
+    return tiny | ((g == 0).to(torch.uint8) << (steps + s))
 
 
-def at_floor(torch, single, mesh):
-    """Elements at the rounding floor at one of the steps, from both runs'
-    ``floor_bits``: under the floor in both, not zero in both."""
+def at_floor(torch, single, mesh, steps=MESH_STEPS, which=None):
+    """Elements at the rounding floor at one of the steps (of ``which``,
+    by default all), from both runs' ``floor_bits``: under the floor in
+    both, not zero in both."""
     out = torch.zeros_like(single, dtype=torch.bool)
-    for s in range(MESH_STEPS):
+    for s in range(steps) if which is None else which:
         tiny = ((single >> s) & (mesh >> s) & 1).bool()
-        zero = ((single >> (3 + s)) & (mesh >> (3 + s)) & 1).bool()
+        zero = ((single >> (steps + s)) & (mesh >> (steps + s)) & 1).bool()
         out |= tiny & ~zero
     return out
 
 
 def mesh_reference(torch, trainer, data, users, tmp, tag, bits: bool,
-                   record=None):
+                   record=None, batches=None, snapshots=None):
     """MESH_STEPS single-process steps on the card: writes the parameters
     after them (``ref_<tag>.pt``) and, with ``bits``, each gradient's
     ``floor_bits`` (``bits_<tag>.pt``); returns the losses. ``record``:
-    called with (step, grads) after each backward pass."""
+    called with (step, grads) after each backward pass. ``batches``: the
+    steps' (packed rows, users) instead of ``data``'s rows of ``users``.
+    ``snapshots``: a directory for a checkpoint of the whole state after
+    every step instead of ``ref_<tag>.pt`` (``mesh_steps`` starts each of
+    its steps from them)."""
+    from gdmcf_torch.train.checkpoint import Checkpointer
+
+    if batches is None:
+        batches = [(data.gather_packed(users[s]), users[s])
+                   for s in range(MESH_STEPS)]
     state = trainer.init_state()
+    snap = snapshots and Checkpointer(snapshots, max_to_keep=len(batches))
     losses, codes = [], {}
-    for s in range(MESH_STEPS):
+    for s, (x, u) in enumerate(batches):
         loss, grads, lt = trainer.loss_and_grads(
-            state, torch.from_numpy(data.gather_packed(users[s])),
-            torch.from_numpy(users[s]))
+            state, torch.from_numpy(x), torch.from_numpy(u))
         if record is not None:
             record(s, grads)
         if bits:
             for k, g in grads.items():
-                b = floor_bits(torch, g, s)
+                b = floor_bits(torch, g, s, len(batches))
                 codes[k] = codes[k] | b if k in codes else b
         state = trainer.apply_grads(state, grads, lt)
         losses.append(float(loss))
-    torch.save({k: p.detach().cpu() for k, p in state.params.items()},
-               os.path.join(tmp, f"ref_{tag}.pt"))
+        del grads
+        if snap:   # the file is written while the next step runs
+            snap.save(state, block=False)
+    if snap:
+        snap.wait()
+    else:
+        torch.save({k: p.detach().cpu() for k, p in state.params.items()},
+                   os.path.join(tmp, f"ref_{tag}.pt"))
     if bits:
         torch.save({k: c.cpu() for k, c in codes.items()},
                    os.path.join(tmp, f"bits_{tag}.pt"))
     return losses
 
 
+def param_report(torch, params, ref, mine, lr, noise=None, floors=None):
+    """Each trainable tensor of a rank against the single process's
+    (``ref``, whole tensors; ``mine`` takes the rank's block): ({tensor:
+    [elements past MESH_PARAMS, elements, largest difference in lr, and
+    with ``floors`` (tensor -> its ``at_floor`` mask): those past it not at
+    the floor, those at the floor]}, the largest share of the tolerance,
+    the largest difference in lr of ``noise``'s elements)."""
+    share, report, noise_lr = 0.0, {}, 0.0
+    for k, p in params.items():
+        want = mine(ref[k], p)
+        diff = (p.detach() - want).abs()
+        ratio = diff / (MESH_PARAMS["atol"]
+                        + MESH_PARAMS["rtol"] * want.abs())
+        if noise is not None:
+            mask = noise(k, p)
+            if bool(mask.any()):
+                noise_lr = max(noise_lr, float(diff[mask].max()) / lr)
+            ratio = ratio.masked_fill(mask, 0.0)
+        share = max(share, float(ratio.max()))
+        past = ratio >= 1
+        report[k] = [int(past.sum()), p.numel(), float(diff.max()) / lr]
+        if floors is not None:
+            floor = floors[k]
+            report[k] += [int((past & ~floor).sum()), int(floor.sum())]
+    return report, share, noise_lr
+
+
 def mesh_steps(torch, trainer, cfg, tmp, tag, dp, mp, rank, fault="",
-               noise=None, record=None):
-    """MESH_STEPS train steps of this rank's dp block of the single-process
-    batches, then each trainable tensor against the single-process run's
-    (``ref_<tag>.pt``): [elements past MESH_PARAMS, elements, largest
-    difference in lr, and with ``bits_<tag>.pt``: those past it not at the
-    floor, those at the floor]. ``fault`` plants one for --mesh-diagnostic:
-    ``lookup`` drops the user table's gradient, ``dp`` leaves
-    ``in_layers.0.weight``'s gradient out of the dp all-reduce. ``noise``:
+               noise=None, record=None, batches=None, snapshots=None):
+    """MESH_STEPS train steps (or one per entry of ``batches``, (packed
+    rows, users) of the whole batch) of this rank's dp block of the
+    single-process batches, then each trainable tensor against the
+    single-process run's (``ref_<tag>.pt``; ``param_report``, with
+    ``bits_<tag>.pt`` the floor's columns too). ``snapshots``: the
+    directory of ``mesh_reference``'s checkpoints; each step after the
+    first then starts from the single process's state before it (its
+    parameters, moments, Lt ring and generator), and each step's result is
+    held against the single process's after it (``step_reports``), so a
+    difference of one step does not carry into the next. ``fault`` plants
+    one: ``lookup`` drops the user table's gradient, ``dp`` leaves
+    ``in_layers.0.weight``'s gradient out of the dp all-reduce, ``item``
+    drops the item table's gradient on rank 1, ``shift`` moves
+    ``in_layers2.0.weight``'s gradient one input column over. ``noise``:
     (name, tensor) -> a mask of elements whose gradient is rounding noise
     in exact arithmetic, left out of the count and reported as their
     largest difference in lr (``noise_lr``). ``record``: called with
@@ -3191,17 +3277,27 @@ def mesh_steps(torch, trainer, cfg, tmp, tag, dp, mp, rank, fault="",
     from gdmcf_torch.ops import fused_adamw as FA
     from gdmcf_torch.parallel import collectives
     from gdmcf_torch.parallel.sharding import local_block, shard_of
+    from gdmcf_torch.train.checkpoint import Checkpointer
 
-    users = np.load(os.path.join(tmp, "mesh_users.npy"))
-    data = NativeCSR.from_scipy(sp.load_npz(os.path.join(tmp, "train.npz")))
+    if batches is None:
+        users = np.load(os.path.join(tmp, "mesh_users.npy"))
+        data = NativeCSR.from_scipy(sp.load_npz(os.path.join(tmp,
+                                                             "train.npz")))
+        batches = [(data.gather_packed(u), u) for u in users[:MESH_STEPS]]
+    steps = len(batches)
     block = cfg.batch_size // dp
     lo = (rank // mp) * block
     state = trainer.init_state()
+    cuda = next(iter(state.params.values())).is_cuda
 
     def mine(t, p):   # this rank's block of a whole tensor, on the card
         if shard_of(p) is not None:
             t = local_block(t, shard_of(p))
         return t.to(p.device)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
 
     with_bits = os.path.exists(os.path.join(tmp, f"bits_{tag}.pt"))
     if with_bits:
@@ -3209,59 +3305,69 @@ def mesh_steps(torch, trainer, cfg, tmp, tag, dp, mp, rank, fault="",
                               weights_only=True)
         ref_bits = {k: mine(ref_bits[k], p) for k, p in state.params.items()}
         bits = {}
+
+    def floors(which):
+        return None if not with_bits else {
+            k: at_floor(torch, ref_bits[k], bits[k], steps, which)
+            for k in state.params}
+
     if fault == "dp":
         shape = state.params["in_layers.0.weight"].shape
         reduce = collectives.all_reduce_
         collectives.all_reduce_ = (
             lambda x, group, op=torch.distributed.ReduceOp.SUM:
             None if x.shape == shape else reduce(x, group, op))
-    losses, launches, step_ms = [], [], []
-    torch.cuda.reset_peak_memory_stats()
-    for s in range(MESH_STEPS):
-        u = users[s][lo:lo + block]
-        x = torch.from_numpy(data.gather_packed(u))
+    snap = snapshots and Checkpointer(snapshots)
+    losses, launches, step_ms, step_reports = [], [], [], []
+    share = noise_lr = 0.0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for s in range(steps):
+        if snap and s:
+            snap.restore(state, step=s)
+        u = batches[s][1][lo:lo + block]
+        x = torch.from_numpy(batches[s][0][lo:lo + block])
         FA.reset_launch_counts()
-        torch.cuda.synchronize()
+        sync()
         t0 = time.perf_counter()
         loss, grads, lt = trainer.loss_and_grads(state, x,
                                                  torch.from_numpy(u))
         if fault == "lookup":
             grads["embedding_user"].zero_()
+        elif fault == "item" and rank == 1:
+            grads["embedding_item"].zero_()
+        elif fault == "shift":
+            g = grads["in_layers2.0.weight"]
+            g.copy_(torch.roll(g, 1, dims=1))
         if record is not None:
             record(s, grads)
         state = trainer.apply_grads(state, grads, lt)
         losses.append(float(loss))
-        torch.cuda.synchronize()
+        sync()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         launches.append(FA.LAUNCHES["fused_adamw"])
         if with_bits:
             for k, g in grads.items():
-                b = floor_bits(torch, g, s)
+                b = floor_bits(torch, g, s, steps)
                 bits[k] = bits[k] | b if k in bits else b
         del grads
-    ref = torch.load(os.path.join(tmp, f"ref_{tag}.pt"), mmap=True,
-                     weights_only=True)
-    share, report, noise_lr = 0.0, {}, 0.0
-    for k, p in state.params.items():
-        want = mine(ref[k], p)
-        diff = (p.detach() - want).abs()
-        ratio = diff / (MESH_PARAMS["atol"]
-                        + MESH_PARAMS["rtol"] * want.abs())
-        if noise is not None:
-            mask = noise(k, p)
-            if bool(mask.any()):
-                noise_lr = max(noise_lr, float(diff[mask].max()) / cfg.lr)
-            ratio = ratio.masked_fill(mask, 0.0)
-        share = max(share, float(ratio.max()))
-        past = ratio >= 1
-        report[k] = [int(past.sum()), p.numel(), float(diff.max()) / cfg.lr]
-        if with_bits:
-            floor = at_floor(torch, ref_bits[k], bits[k])
-            report[k] += [int((past & ~floor).sum()), int(floor.sum())]
+        if snap:
+            _, want = snap.load_params(step=s + 1)
+            report, sh, nl = param_report(torch, state.params, want, mine,
+                                          cfg.lr, noise, floors([s]))
+            step_reports.append(report)
+            share, noise_lr = max(share, sh), max(noise_lr, nl)
+    if not snap:
+        ref = torch.load(os.path.join(tmp, f"ref_{tag}.pt"), mmap=True,
+                         weights_only=True)
+        report, share, noise_lr = param_report(
+            torch, state.params, ref, mine, cfg.lr, noise, floors(None))
     return dict(losses=losses, launches=launches, step_ms=step_ms,
                 local_tensors=len(state.params), param_share=share,
-                param_report=report, noise_lr=noise_lr,
-                peak_gib=torch.cuda.max_memory_allocated() / 2**30), state
+                param_report=report, step_reports=step_reports,
+                noise_lr=noise_lr, peak_gib=(
+                    torch.cuda.max_memory_allocated() / 2**30 if cuda
+                    else 0.0)), state
 
 
 def mesh_worker(argv) -> int:
@@ -3389,8 +3495,9 @@ def mesh_worker(argv) -> int:
     return 0
 
 
-def start_world(kind, dp, mp, tmp, fault=""):
-    """Start the dp * mp ranks of a world; returns their processes."""
+def start_world(kind, dp, mp, tmp, fault="", worker="--mesh-worker"):
+    """Start the dp * mp ranks of a world (each this script under
+    ``worker``); returns their processes."""
     port = free_port()
     procs = []
     for rank in range(dp * mp):
@@ -3400,7 +3507,7 @@ def start_world(kind, dp, mp, tmp, fault=""):
         logf = open(os.path.join(tmp, f"{kind}_{dp}x{mp}_rank{rank}.log"),
                     "w")
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+            [sys.executable, os.path.abspath(__file__), worker,
              kind, str(dp), str(mp), tmp, fault], env=env, stdout=logf,
             stderr=subprocess.STDOUT))
         logf.close()
@@ -3450,6 +3557,28 @@ def mesh_inputs(csr, tmp):
                            "compute_dtype": "float32"},
                    "eval_users": MESH_EVAL_USERS}, fh)
     return train, valid, users, lgn_users
+
+
+def assert_mesh_rule(tag, r, ref_losses, reports=None, launches=True):
+    """Phase 19's rule for one rank's steps (``mesh_steps``) against the
+    single process's: every step's loss within MESH_LOSS_RTOL; no element
+    past MESH_PARAMS but at the rounding floor, and those at most
+    MESH_EXCUSED_SHARE of the rank's tensor; one K1 launch per trainable
+    tensor per step (``launches``: K1 runs on the card only). The
+    parameters are those of ``param_report``, or of each of ``reports``
+    (``step_reports``, each step started from the single process's
+    state)."""
+    for s, (a, b) in enumerate(zip(r["losses"], ref_losses)):
+        assert abs(a - b) <= MESH_LOSS_RTOL * abs(b), \
+            f"{tag} rank {r['rank']} step {s}: {a} vs {b}"
+    for s, rep in enumerate(reports or [r["param_report"]]):
+        bad = {k: v for k, v in rep.items() if v[3]}
+        assert not bad, (tag, r["rank"], s, "past, not at the floor", bad)
+        wide = {k: v for k, v in rep.items()
+                if v[0] - v[3] > MESH_EXCUSED_SHARE * v[1]}
+        assert not wide, (tag, r["rank"], s, "excused", wide)
+    assert not launches or r["launches"] == [r["local_tensors"]] * len(
+        ref_losses), (tag, r["launches"], r["local_tensors"])
 
 
 def tf32_report(ranks):
@@ -3598,18 +3727,7 @@ def mesh_phase(root, card, torch, csr):
         for (dp, mp), ranks in results.items():
             tag = f"({dp},{mp})"
             for r in ranks:
-                for s, (a, b) in enumerate(zip(r["losses"], ref_losses)):
-                    assert abs(a - b) <= MESH_LOSS_RTOL * abs(b), \
-                        f"{tag} rank {r['rank']} step {s}: {a} vs {b}"
-                rep = r["param_report"]
-                bad = {k: v for k, v in rep.items() if v[3]}
-                assert not bad, (tag, r["rank"], "past, not at the floor",
-                                 bad)
-                wide = {k: v for k, v in rep.items()
-                        if v[0] - v[3] > MESH_EXCUSED_SHARE * v[1]}
-                assert not wide, (tag, r["rank"], "excused", wide)
-                assert r["launches"] == [r["local_tensors"]] * MESH_STEPS, \
-                    (tag, r["launches"], r["local_tensors"])
+                assert_mesh_rule(tag, r, ref_losses)
                 assert r["host_vectors_bit_exact"], tag
                 assert r["eval_other"] == 0, (tag, r["rank"], r["eval_other"])
                 for key in ("eval_sharded", "eval_replicated"):
@@ -5271,9 +5389,8 @@ def fused_run(torch, cfg, csr, k, profile_epoch=False):
             ms.append((time.perf_counter() - t0) * 1e3)
     r["step_ms_p50"] = float(np.percentile(ms, 50))
     if profile_epoch:
-        # one more epoch of FUSED_STEPS steps under the profiler: its first
-        # group eager, the others replays; K1 counted by the wrapper
-        # against the trace
+        # one more epoch of FUSED_STEPS steps under the profiler, every
+        # group a replay; K1 counted by the wrapper against the trace
         from torch.profiler import ProfilerActivity, profile
         FA.reset_launch_counts()
         before = tg.replays
@@ -5362,13 +5479,13 @@ def fused_train(root, card, torch, csr, backbone):
     if "profiler_adamw" in r8:
         log(f"fused {backbone}: a further epoch of {FUSED_STEPS} steps "
             f"under torch.profiler: K1 counted {r8['profiled_launches']} "
-            f"(the eager first group's {r8['captured']} + captured "
-            f"{r8['captured']} x {r8['profiled_replays']} replays), the "
+            f"(captured {r8['captured']} x {r8['profiled_replays']} "
+            f"replays: a later epoch replays its first group too), the "
             f"trace's _adamw_kernel launches {r8['profiler_adamw']} "
             f"[{card}]")
         assert r8["profiler_adamw"] == r8["profiled_launches"] == \
-            r8["captured"] * (r8["profiled_replays"] + 1), r8
-        assert r8["profiled_replays"] == FUSED_STEPS // FUSED_K - 1, r8
+            r8["captured"] * r8["profiled_replays"], r8
+        assert r8["profiled_replays"] == FUSED_STEPS // FUSED_K, r8
     gc.collect()
     torch.cuda.empty_cache()
     return r8
@@ -5448,6 +5565,794 @@ def fused_phase(root, card, torch, csr):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the JAX package's scale geometries
+# ---------------------------------------------------------------------------
+
+# (a) the single-chip 1M-item catalog (docs/BENCH_NOTES.md:21-35): 200k
+# users, host_dense false, batch 256, packed rows, streaming eval
+SCALE_A_USERS, SCALE_A_ITEMS = 200_000, 1_000_000
+SCALE_A_DIMS = 500             # --scale-width 1000 probes the recipe's width
+SCALE_A_BATCH = 256
+SCALE_A_STEPS = 32
+SCALE_A_TIMED_GROUPS = 2       # replays timed alone after the 32 steps
+SCALE_A_EVAL_USERS = 4_096     # evaluate_streaming at K 8 and K 1
+SCALE_A_GATE_USERS = 512       # streaming against dense evaluate
+# (b) BASELINE.md's row, benchmarks/scale_smoke.py --train-steps 32
+# --batch-pool 2 --eval-users 128 --assert-decreasing at dims [64], batch 64
+SCALE_B_USERS, SCALE_B_ITEMS = 10_000_000, 1_000_000
+SCALE_B_DIMS, SCALE_B_BATCH = 64, 64
+SCALE_B_STEPS, SCALE_B_POOL, SCALE_B_EVAL_USERS = 32, 2, 128
+SCALE_B_MESH = (1, 2)          # the user table row-sharded over two ranks
+SCALE_B_MESH_STEPS = 4
+# (b)'s mesh runs 1 + SCALE_B_MESH_STEPS steps, each from the single
+# process's state before it (parameters, moments, Lt ring, generator):
+# without the restarts one step's differences carry into the next
+# step's forward (4.76 lr apart after 4 steps on the card). The last
+# SCALE_B_MESH_STEPS are held to phase 19's rule. The first is AdamW's
+# step from zero moments, g / (|g| + eps) of lr: sign descent for any
+# gradient over eps. At 1M items float32 rounds many gradients of the item
+# table and the one-hot tower's first layer (a sum over 2M inputs) to
+# within 1e-7 of zero, over MESH_FLOOR, where the two runs' sums may take
+# opposite signs, up to 2 lr apart; that step is reported, not held
+# (ROADMAP section C, open; PERF.md section 6)
+# (c) benchmarks/lightgcn_scale_pretrain.py's defaults
+SCALE_C_USERS, SCALE_C_ITEMS = 1_000_000, 200_000
+SCALE_C_DEGREE, SCALE_C_ALPHA = 10, 1.6
+SCALE_C_BATCH, SCALE_C_DIM, SCALE_C_LAYERS = 65_536, 64, 2
+SCALE_C_BR, SCALE_C_BC, SCALE_C_EPOCHS = 8, 128, 2
+SCALE_LR = 1e-4                # scale_smoke.py's Config
+SCALE_CLOSE = 1.01e-4          # scale_smoke.py's streaming = dense gate
+SCALE_LOSS_RTOL = 1e-5         # block against hybrid pretraining losses
+
+
+def synthetic_csr(rng, n_user, n_item, avg_degree=12, alpha=1.05):
+    """``benchmarks/scale_smoke.py``'s ``synthetic_csr``, the same draws:
+    Poisson(avg_degree) degrees (at least 1), items drawn with weight
+    (id + 1)^-alpha, repeated pairs kept once."""
+    import scipy.sparse as sp
+
+    pop = 1.0 / np.arange(1, n_item + 1) ** alpha
+    pop /= pop.sum()
+    degrees = np.maximum(rng.poisson(avg_degree, n_user), 1)
+    rows = np.repeat(np.arange(n_user), degrees)
+    cols = rng.choice(n_item, size=degrees.sum(), p=pop)
+    data = np.ones(len(rows), np.float32)
+    m = sp.csr_matrix((data, (rows, cols)), shape=(n_user, n_item))
+    m.data[:] = 1.0
+    return m
+
+
+def scale_config(dims, batch, **kw):
+    """``benchmarks/scale_smoke.py``'s Config on the card, at the recipes'
+    K 8 of both fused calls."""
+    from gdmcf_torch.config import Config
+
+    base = dict(backbone="DNNOneHotEmbeddingGCN", dims=[dims], emb_size=10,
+                steps=5, noise_scale=0.01, batch_size=batch, topN=[10, 20],
+                lr=SCALE_LR, debug=True, sampling_steps=0, host_dense=False,
+                train_steps_per_call=FUSED_K, eval_batches_per_call=FUSED_K,
+                device="cuda")
+    base.update(kw)
+    return Config(**base)
+
+
+def tensor_sums(torch, t, chunk=1 << 26):
+    """float64 (sum, sum of squares) of a tensor, chunk by chunk: tells a
+    tensor that moved from one that did not without a clone beside a model
+    of billions of elements."""
+    flat = t.detach().reshape(-1)
+    acc = torch.zeros(2, dtype=torch.float64, device=flat.device)
+    for i in range(0, flat.numel(), chunk):
+        c = flat[i:i + chunk].double()
+        acc[0] += c.sum()
+        acc[1] += (c * c).sum()
+    return tuple(acc.tolist())
+
+
+def reckoned_gib(n_params: int) -> float:
+    """Parameters, gradients (float32) and bfloat16 moments: 12 B an
+    element, before activations."""
+    return 12 * n_params / 2**30
+
+
+def live_topn(n_item: int):
+    """scale_smoke.py's live leg cutoff: about 12 expected hits a user
+    even under a random ranking."""
+    return [min(max(n_item // 128, 100), 8192)]
+
+
+def composed_gates(torch, trainer, inp, gt, label):
+    """The two gates of ``scale_smoke.py:175-207`` at the trainer's state:
+    ``evaluate_streaming`` of the rows of ``inp`` (scipy CSR) against ``gt``
+    equal to dense ``evaluate`` within SCALE_CLOSE, and the live leg (GT =
+    the input rows, no history mask, cutoff ``live_topn``) nonzero and
+    equal on both paths. Returns the readings."""
+    import scipy.sparse as sp
+
+    from gdmcf_torch.data.native import NativeCSR
+
+    n_user, n_item = inp.shape
+    topn = trainer.cfg.topN
+    i_n, g_n = NativeCSR.from_scipy(inp), NativeCSR.from_scipy(gt, strict=False)
+    t0 = time.perf_counter()
+    res = trainer.evaluate_streaming(None, [i_n], g_n, [i_n], topn,
+                                     drop_last=False)
+    stream_s = time.perf_counter() - t0
+    flat = [float(v) for grp in res for v in grp]
+    assert flat and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in flat), res
+    res_w = trainer.evaluate_streaming(None, [i_n], g_n, [i_n], topn,
+                                       drop_last=False)
+    np.testing.assert_allclose([float(v) for grp in res_w for v in grp],
+                               flat, atol=SCALE_CLOSE)
+    rows = np.asarray(inp.todense(), dtype=np.float32)
+    gtd = np.asarray(gt.todense(), dtype=np.float32)
+    t0 = time.perf_counter()
+    res_d = trainer.evaluate(None, rows, gtd, rows, topn, drop_last=False)
+    dense_s = time.perf_counter() - t0
+    flat_d = [float(v) for grp in res_d for v in grp]
+    np.testing.assert_allclose(flat, flat_d, atol=SCALE_CLOSE,
+                               err_msg=f"{label}: streaming != dense eval")
+    del gtd
+    empty = NativeCSR.from_scipy(sp.csr_matrix((n_user, n_item),
+                                               dtype=np.float32))
+    top_live = live_topn(n_item)
+    res2 = trainer.evaluate_streaming(None, [i_n], i_n, [empty], top_live,
+                                      drop_last=False)
+    res2_d = trainer.evaluate(None, rows, rows, np.zeros_like(rows),
+                              top_live, drop_last=False)
+    f2 = [float(v) for grp in res2 for v in grp]
+    f2d = [float(v) for grp in res2_d for v in grp]
+    np.testing.assert_allclose(f2, f2d, atol=SCALE_CLOSE)
+    assert max(f2) > 0.0, (label, "the live leg returned all-zero metrics",
+                           res2)
+    log(f"{label}: the composed gates on {n_user} users: evaluate_streaming "
+        f"{res} ({stream_s:.2f} s, the second call within {SCALE_CLOSE}) "
+        f"equals dense evaluate within {SCALE_CLOSE} ({dense_s:.2f} s); the "
+        f"live leg (GT = the input rows, no history mask, top "
+        f"{top_live[0]}) {res2} nonzero, equal on both paths")
+    return dict(metrics=res, live=res2, stream_s=stream_s, dense_s=dense_s)
+
+
+def scale_catalog(card, torch, dims, stage):
+    """Phase 24 (a): the flagship at the 1M-item catalog at ``dims``:
+    train_epoch of SCALE_A_STEPS steps at K 8, a Recommender over it,
+    evaluate_streaming of SCALE_A_EVAL_USERS users at K 8 and K 1 and the
+    composed gates. ``stage`` (a list) holds the stage that runs, for the
+    width probe's report. Returns the readings."""
+    from gdmcf_torch.data.loader import epoch_batches
+    from gdmcf_torch.data.native import NativeCSR
+    from gdmcf_torch.ops import fused_adamw as FA
+    from gdmcf_torch.ops import metrics as M
+    from gdmcf_torch.serve import build_recommender
+    from gdmcf_torch.train.trainer import Trainer
+
+    U, N, B = SCALE_A_USERS, SCALE_A_ITEMS, SCALE_A_BATCH
+    out = {"dims": dims}
+    stage[:] = ["the host's graph"]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    train = synthetic_csr(rng, U, N)
+    valid = synthetic_csr(rng, U, N, avg_degree=2)
+    test = synthetic_csr(rng, U, N, avg_degree=3)
+    out["graph_s"] = time.perf_counter() - t0
+    log(f"scale (a): {U} x {N}, train {train.nnz} / valid {valid.nnz} / "
+        f"test {test.nnz} interactions (synthetic_csr at seed 0, "
+        f"{out['graph_s']:.1f} s on the host)")
+
+    stage[:] = ["the Trainer's init"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = scale_config(dims, B)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, U, N)
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params.values())
+    n_tensors = len(state.params)
+    formula = 6 * N * dims + U * dims
+    out.update(params=n_params, reckoned_gib=reckoned_gib(n_params),
+               init_s=time.perf_counter() - t0)
+    log(f"scale (a) dims [{dims}]: {n_params} trainable elements in "
+        f"{n_tensors} tensors (6 N d + U d = {formula}); reckoned "
+        f"parameters + gradients + bfloat16 moments "
+        f"{out['reckoned_gib']:.2f} GiB before activations; init "
+        f"{out['init_s']:.1f} s, allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of the card's "
+        f"{torch.cuda.mem_get_info()[1] / 2**30:.2f} GiB")
+    before = {k: tensor_sums(torch, p) for k, p in state.params.items()}
+
+    stage[:] = [f"train_epoch of {SCALE_A_STEPS} steps at K {FUSED_K}"]
+    data = NativeCSR.from_scipy(train[:SCALE_A_STEPS * B])
+    losses = []
+    group = trainer._train_group
+
+    def kept_group(*a, **kw):
+        st, ls = group(*a, **kw)
+        losses.append(ls)
+        return st, ls
+
+    trainer._train_group = kept_group
+    FA.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, total = trainer.train_epoch(state, data, np.random.default_rng(0))
+    torch.cuda.synchronize()
+    out["epoch_s"] = time.perf_counter() - t0
+    launches = FA.LAUNCHES["fused_adamw"]
+    trainer._train_group = group
+    losses = torch.cat(losses).cpu().numpy()
+    (tg,) = trainer._graphs.train_graphs.values()
+    out.update(launches=launches, captured=tg.launches["fused_adamw"],
+               replays=tg.replays, capture_s=tg.capture_s,
+               peak_train_gib=torch.cuda.max_memory_allocated() / 2**30)
+    assert state.step == SCALE_A_STEPS and len(losses) == SCALE_A_STEPS
+    assert np.isfinite(losses).all() and np.isfinite(total), losses
+    assert launches == n_tensors * SCALE_A_STEPS, launches
+    assert launches == out["captured"] * (out["replays"] + 1), out
+    still = [k for k, p in state.params.items()
+             if tensor_sums(torch, p) == before[k]]
+    assert not still, f"did not move: {still}"
+    del before
+
+    stage[:] = ["the timed replays"]
+    batches = list(epoch_batches(data, B, np.random.default_rng(1),
+                                 packed=True))
+    ms = []
+    for j in range(SCALE_A_TIMED_GROUPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer._train_group(state, batches[j * FUSED_K:(j + 1) * FUSED_K])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / FUSED_K)
+    out["step_ms_p50"] = float(np.percentile(ms, 50))
+    out["pool_train_gib"] = graph_pool_bytes(torch, trainer._graphs.pool) / 2**30
+    log(f"scale (a) train_epoch: {SCALE_A_STEPS} steps of {B} at K "
+        f"{FUSED_K} in {out['epoch_s']:.2f} s (the first group eager, "
+        f"capture {out['capture_s']:.3f} s, {out['replays']} replays), "
+        f"losses finite (first {losses[0]:.4f}, last {losses[-1]:.4f}), all "
+        f"{n_tensors} tensors moved; K1 launches {launches} = {n_tensors} x "
+        f"{SCALE_A_STEPS} (the eager group's {out['captured']} + "
+        f"{out['captured']} captured x {out['replays']} replays); step p50 "
+        f"{out['step_ms_p50']:.3f} ms (a replay over {FUSED_K}), "
+        f"{B / out['step_ms_p50'] * 1e3:.1f} examples/s; peak allocated "
+        f"{out['peak_train_gib']:.2f} GiB against {out['reckoned_gib']:.2f} "
+        f"GiB reckoned; the graph pool {out['pool_train_gib']:.2f} GiB "
+        f"[{card}]")
+
+    # fit's next epoch: every group a replay, the first too
+    stage[:] = ["a second train_epoch"]
+    FA.reset_launch_counts()
+    before = tg.replays
+    t0 = time.perf_counter()
+    state, total2 = trainer.train_epoch(state, data,
+                                        np.random.default_rng(2))
+    torch.cuda.synchronize()
+    out["epoch2_s"] = time.perf_counter() - t0
+    launches2 = FA.LAUNCHES["fused_adamw"]
+    replays2 = tg.replays - before
+    assert np.isfinite(total2) and state.step == 2 * SCALE_A_STEPS + \
+        SCALE_A_TIMED_GROUPS * FUSED_K, (total2, state.step)
+    assert replays2 == SCALE_A_STEPS // FUSED_K and launches2 == \
+        out["captured"] * replays2, (replays2, launches2)
+    out["launches_epoch2"] = launches2
+    log(f"scale (a) a second train_epoch (fit's next epoch): "
+        f"{out['epoch2_s']:.2f} s, {replays2} replays (its first group "
+        f"too), K1 launches {launches2}, loss sum {total2:.4f}; peak "
+        f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB [{card}]")
+
+    stage[:] = ["serving"]
+    rec = build_recommender(cfg, None, train, U, N, trainer=trainer,
+                            serve_batch=256, k_max=100)
+    users_b = check_requests(rec, train, N, "scale (a) flagship")
+    times = []
+    excl = np.ones(256, dtype=bool)
+    for _ in range(25):
+        t0 = time.perf_counter()
+        rec.recommend_batch(users_b[:256], excl)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["request_ms_p50"] = float(np.percentile(times, 50))
+    out["request_ms_p90"] = float(np.percentile(times, 90))
+    log(f"scale (a) request (256 users, k_max 100, {N} items): p50 "
+        f"{out['request_ms_p50']:.3f} ms, p90 {out['request_ms_p90']:.3f} "
+        f"ms over 25 dispatches (limit 50 ms at p50) [{card}]")
+    del rec
+
+    stage[:] = [f"evaluate_streaming of {SCALE_A_EVAL_USERS} users"]
+    n = SCALE_A_EVAL_USERS
+    tr_n = NativeCSR.from_scipy(train[:n])
+    va_n = NativeCSR.from_scipy(valid[:n], strict=False)
+    sums, secs = {}, []
+    result = M.MetricAccumulator.result
+
+    def kept(self):
+        sums.setdefault(trainer.cfg.eval_batches_per_call, []).append(
+            self.sums.copy())
+        return result(self)
+
+    M.MetricAccumulator.result = kept
+    try:
+        for k in (FUSED_K, FUSED_K, 1):
+            cfg.eval_batches_per_call = k
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.evaluate_streaming(state, [tr_n], va_n, [tr_n], cfg.topN)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    finally:
+        M.MetricAccumulator.result = result
+        cfg.eval_batches_per_call = FUSED_K
+    ref = sums[1][0]
+    equal = all(np.array_equal(a, ref) for v in sums.values() for a in v)
+    out.update(eval_s=secs, pool_gib=graph_pool_bytes(
+        torch, trainer._graphs.pool) / 2**30,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"scale (a) evaluate_streaming of {n} users ({n // B} batches) of "
+        f"the valid split: K {FUSED_K} {secs[0]:.2f} s (the first group "
+        f"eager and the capture) / {secs[1]:.2f} s (replays), K 1 "
+        f"{secs[2]:.2f} s; the metric sums of K {FUSED_K} and K 1 equal "
+        f"{equal}; the graph pool {out['pool_gib']:.2f} GiB, peak allocated "
+        f"{out['peak_gib']:.2f} GiB [{card}]")
+    assert equal, sums
+
+    stage[:] = [f"the composed gates on {SCALE_A_GATE_USERS} users"]
+    g = SCALE_A_GATE_USERS
+    out["gates"] = composed_gates(torch, trainer, train[:g],
+                                  valid[:g].tocsr(), "scale (a)")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"scale (a) dims [{dims}]: peak allocated {out['peak_gib']:.2f} GiB "
+        f"(reckoned {out['reckoned_gib']:.2f} GiB before activations), "
+        f"reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB [{card}]")
+    del trainer, state, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def scale_pool(rng):
+    """scale_smoke.py's --batch-pool batches: dense rows of density 1e-4
+    and random users, bit-packed for the wire."""
+    from gdmcf_torch.ops.bitpack import pack_rows
+
+    pool = []
+    for _ in range(SCALE_B_POOL):
+        x = (rng.random((SCALE_B_BATCH, SCALE_B_ITEMS)) < 1e-4).astype(
+            np.float32)
+        idx = rng.integers(0, SCALE_B_USERS, SCALE_B_BATCH).astype(np.int32)
+        pool.append((pack_rows(x), idx))
+    return pool
+
+
+def scale_users(card, torch):
+    """Phase 24 (b), one process: the flagship at 10M users x 1M items,
+    SCALE_B_STEPS steps at K 8 over the batch pool, the loss decreasing,
+    then the composed eval of SCALE_B_EVAL_USERS users. Returns the
+    readings and the pool."""
+    from gdmcf_torch.ops import fused_adamw as FA
+    from gdmcf_torch.train.trainer import Trainer
+
+    U, N, B = SCALE_B_USERS, SCALE_B_ITEMS, SCALE_B_BATCH
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(0)
+    cfg = scale_config(SCALE_B_DIMS, B)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, U, N)
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.params.values())
+    n_tensors = len(state.params)
+    out = dict(params=n_params, reckoned_gib=reckoned_gib(n_params),
+               init_s=init_s)
+    t0 = time.perf_counter()
+    pool = scale_pool(rng)
+    out["pool_s"] = time.perf_counter() - t0
+    log(f"scale (b): {U} x {N}, dims [{SCALE_B_DIMS}], batch {B}: "
+        f"{n_params} trainable elements in {n_tensors} tensors, reckoned "
+        f"{out['reckoned_gib']:.2f} GiB with gradients and bfloat16 moments; "
+        f"init {init_s:.1f} s; a pool of {SCALE_B_POOL} batches "
+        f"({out['pool_s']:.1f} s on the host)")
+    FA.reset_launch_counts()
+    losses, ms = [], []
+    for g in range(SCALE_B_STEPS // FUSED_K):
+        chunk = [pool[(g * FUSED_K + j) % SCALE_B_POOL]
+                 for j in range(FUSED_K)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, ls = trainer._train_group(state, chunk)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / FUSED_K)
+        losses.append(ls)
+    launches = FA.LAUNCHES["fused_adamw"]
+    losses = torch.cat(losses).cpu().numpy()
+    (tg,) = trainer._graphs.train_graphs.values()
+    assert np.isfinite(losses).all(), losses
+    assert launches == n_tensors * SCALE_B_STEPS == \
+        tg.launches["fused_adamw"] * (tg.replays + 1), launches
+    n5 = max(len(losses) // 5, 1)
+    head, tail = float(losses[:n5].mean()), float(losses[-n5:].mean())
+    assert tail < head, ("the loss did not decrease", head, tail)
+    out.update(launches=launches, losses=losses.tolist(), head=head,
+               tail=tail, step_ms_p50=float(np.percentile(ms[1:], 50)),
+               peak_train_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"scale (b): {SCALE_B_STEPS} steps at K {FUSED_K} (the first group "
+        f"eager, capture {tg.capture_s:.3f} s, {tg.replays} replays): loss "
+        f"first-{n5} mean {head:.4f} -> last-{n5} mean {tail:.4f}; K1 "
+        f"launches {launches} = {n_tensors} x {SCALE_B_STEPS}; step p50 "
+        f"{out['step_ms_p50']:.3f} ms (a replay over {FUSED_K}), "
+        f"{B / out['step_ms_p50'] * 1e3:.1f} examples/s; peak allocated "
+        f"{out['peak_train_gib']:.2f} GiB [{card}]")
+    ev = synthetic_csr(rng, SCALE_B_EVAL_USERS, N)
+    gt = synthetic_csr(rng, SCALE_B_EVAL_USERS, N, avg_degree=3)
+    out["gates"] = composed_gates(torch, trainer, ev, gt, "scale (b)")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, pool
+
+
+def scale_mesh_worker(argv) -> int:
+    """One rank of phase 24 (b)'s mesh (``--scale-mesh-worker KIND DP MP
+    DIR [FAULT]``): the flagship of ``DIR/scale_inputs.json`` in float32,
+    its steps of the pool's batches held against the single process's,
+    each started from the single process's state (``mesh_steps`` with its
+    snapshots); writes ``DIR/<KIND>_<DP>x<MP>_rank<r>.json``."""
+    import faulthandler
+
+    kind, dp, mp, tmp = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    fault = argv[4] if len(argv) > 4 else ""
+    faulthandler.dump_traceback_later(MESH_RANK_TIMEOUT, exit=True)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    from gdmcf_torch.parallel import multihost
+    from gdmcf_torch.parallel.sharding import describe
+    from gdmcf_torch.train.trainer import Trainer
+
+    meta = json.load(open(os.path.join(tmp, "scale_inputs.json")))
+    cuda = meta["device"] != "cpu"
+    multihost.initialize(backend="gloo", device="cuda" if cuda else "cpu")
+    rank = multihost.process_index()
+    if cuda:
+        torch.cuda.set_device(0)
+    cfg = scale_config(meta["dims"], meta["batch"], compute_dtype="float32",
+                       mesh_dp=dp, mesh_mp=mp, device=meta["device"])
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, meta["users"], meta["items"])
+    if cuda:
+        torch.cuda.synchronize()
+    out = {"rank": rank, "init_s": time.perf_counter() - t0, "placements": {
+        k: f"{describe(v)} local {list(trainer.model.state_dict()[k].shape)}"
+        for k, v in trainer.placements.items()}}
+    pool = np.load(os.path.join(tmp, "pool.npz"))
+    batches = [(pool[f"x{j % meta['pool']}"], pool[f"u{j % meta['pool']}"])
+               for j in range(meta["steps"])]
+    steps, _ = mesh_steps(torch, trainer, cfg, tmp, kind, dp, mp, rank,
+                          fault, batches=batches,
+                          snapshots=os.path.join(tmp, "snapshots"))
+    out.update(steps)
+    with open(os.path.join(tmp, f"{kind}_{dp}x{mp}_rank{rank}.json"),
+              "w") as fh:
+        json.dump(out, fh)
+    multihost.sync_hosts()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def scale_mesh_world(torch, pool, tmp, users, items, dims, batch, steps,
+                     device, fault=""):
+    """The single process's ``steps`` steps of ``pool`` (float32, a
+    checkpoint after each), then a (1, 2) world of two gloo ranks on the
+    same device (``scale_mesh_worker``) whose steps start from them.
+    Returns (the single process's losses, the ranks' results, its seconds,
+    the world's)."""
+    from gdmcf_torch.train.trainer import Trainer
+
+    batches = [pool[j % len(pool)] for j in range(steps)]
+    np.savez(os.path.join(tmp, "pool.npz"), **{
+        f"{w}{j}": a for j, (x, u) in enumerate(pool)
+        for w, a in (("x", x), ("u", u))})
+    with open(os.path.join(tmp, "scale_inputs.json"), "w") as fh:
+        json.dump({"users": users, "items": items, "dims": dims,
+                   "batch": batch, "pool": len(pool), "steps": steps,
+                   "device": device}, fh)
+    t0 = time.perf_counter()
+    trainer = Trainer(scale_config(dims, batch, compute_dtype="float32",
+                                   device=device), users, items)
+    ref_losses = mesh_reference(torch, trainer, None, None, tmp, "scale",
+                                bits=True, batches=batches,
+                                snapshots=os.path.join(tmp, "snapshots"))
+    del trainer
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dp, mp = SCALE_B_MESH
+    ranks = finish_world("scale", dp, mp, tmp, start_world(
+        "scale", dp, mp, tmp, fault, worker="--scale-mesh-worker"))
+    return ref_losses, ranks, ref_s, time.perf_counter() - t0
+
+
+def scale_mesh(card, torch, pool):
+    """Phase 24 (b) on a (1, 2) mesh: 1 + SCALE_B_MESH_STEPS steps of the
+    pool on two gloo ranks sharing the card (5M user rows each), each
+    started from the single process's state before it and held against
+    the single process's step under phase 19's rule (float32 on both
+    sides), but for the first, AdamW's step from zero moments, which is
+    reported (see SCALE_B_MESH_STEPS). Returns K1's launches by rank."""
+    tmp = tempfile.mkdtemp(prefix="gdmcf_scale_mesh_")
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref_losses, ranks, ref_s, world_s = scale_mesh_world(
+            torch, pool, tmp, SCALE_B_USERS, SCALE_B_ITEMS, SCALE_B_DIMS,
+            SCALE_B_BATCH, 1 + SCALE_B_MESH_STEPS, "cuda:0")
+        tag = f"scale (b) mesh {SCALE_B_MESH}"
+        for name, place in ranks[0]["placements"].items():
+            log(f"{tag} {name}: {place}")
+        for s in range(1 + SCALE_B_MESH_STEPS):
+            counts = {}   # [past, not at the floor, at the floor, lr]
+            for r in ranks:
+                for k, v in r["step_reports"][s].items():
+                    c = counts.setdefault(k, [0, 0, 0, 0.0])
+                    c[0], c[1], c[2] = c[0] + v[0], c[1] + v[3], c[2] + v[4]
+                    c[3] = round(max(c[3], v[2]), 4)
+            log(f"{tag} step {s} ("
+                f"{'reported: the first from zero moments' if s == 0 else 'held'}"
+                f"): loss {ranks[0]['losses'][s]} (single process "
+                f"{ref_losses[s]}); by tensor over the ranks [past rtol "
+                f"{MESH_PARAMS['rtol']} / atol {MESH_PARAMS['atol']}, those "
+                f"not at the floor {MESH_FLOOR}, elements at the floor, the "
+                f"largest difference in lr] "
+                f"{ {k: c for k, c in counts.items() if c[0] or c[2]} }")
+        log(f"{tag}: {1 + SCALE_B_MESH_STEPS} steps of {SCALE_B_BATCH} of "
+            f"the pool, float32, each from the single process's state "
+            f"before it; steps 1-{SCALE_B_MESH_STEPS} under phase 19's rule "
+            f"(losses rtol {MESH_LOSS_RTOL}; parameters within rtol "
+            f"{MESH_PARAMS['rtol']} / atol {MESH_PARAMS['atol']} but at the "
+            f"floor, excused at most {MESH_EXCUSED_SHARE} of a rank's "
+            f"tensor), step 0 reported; fused_adamw launches per rank per "
+            f"step {ranks[0]['launches']} = the rank's "
+            f"{ranks[0]['local_tensors']} trainable tensors; ranks sharing "
+            f"one card over gloo (not a scaling number): step p50 "
+            f"{float(np.median([m for r in ranks for m in r['step_ms'][1:]])):.1f}"
+            f" ms, peak memory by rank "
+            f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; the single "
+            f"process {ref_s:.1f} s (a checkpoint a step), the world "
+            f"{world_s:.1f} s [{card}]")
+        for r in ranks:
+            assert_mesh_rule(tag, r, ref_losses,
+                             reports=r["step_reports"][1:])
+        return [r["launches"] for r in ranks]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def scale_pretrain(root, card, torch):
+    """Phase 24 (c): LightGCN pretraining at 1M x 200k on the degree-sorted
+    power-law graph, SCALE_C_EPOCHS epochs on the block-CSR operand and on
+    the hybrid one, the host builds timed; then spmm_rows at this operand
+    against its plain version, its bound and torch.sparse.mm. Returns the
+    readings and the kernel entries' additions."""
+    from gdmcf_torch.data.native import NativeCSR
+    from gdmcf_torch.models import lightgcn as lg
+    from gdmcf_torch.ops import fused_adamw as FA
+    from gdmcf_torch.ops import spmm as S
+    from gdmcf_torch.train.trainer import matmul_precision
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    m = synthetic_csr(rng, SCALE_C_USERS, SCALE_C_ITEMS,
+                      avg_degree=SCALE_C_DEGREE, alpha=SCALE_C_ALPHA)
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rp, cp = S.degree_sort_permutation(m)
+    m = m.tocsr()[rp][:, cp].tocsr()
+    sort_s = time.perf_counter() - t0
+    steps = max(SCALE_C_USERS // SCALE_C_BATCH, 1)
+    log(f"scale (c): graph {SCALE_C_USERS} x {SCALE_C_ITEMS}, nnz {m.nnz} "
+        f"(synthetic_csr at seed 0, degree {SCALE_C_DEGREE}, alpha "
+        f"{SCALE_C_ALPHA}: {draw_s:.2f} s; degree sort and relabel "
+        f"{sort_s:.2f} s on the host)")
+
+    # the host builds in parts, timed where pretrain runs them
+    spent, kept = {}, {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t
+            kept[name] = r
+            return r
+        return run
+
+    originals = (lg._normalized_sparse_n, lg.to_block_sparse, lg.to_hybrid,
+                 S.row_operands, S.BlockSparse._row_operands, lg.bpr_step,
+                 NativeCSR.sample_bpr)
+    step_ms, step_losses = [], []
+
+    def bpr_step(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, loss = originals[5](*a, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        step_losses.append(loss)
+        return st, loss
+
+    runs = {}
+    try:
+        lg._normalized_sparse_n = timed("normalisation", originals[0])
+        lg.to_block_sparse = timed("tiles", originals[1])
+        lg.to_hybrid = timed("tiles", originals[2])
+        # the hybrid builds its row operands inside to_hybrid, the block
+        # format from its tiles at first use (both through row_operands)
+        S.row_operands = timed("csr operands", originals[3])
+        S.BlockSparse._row_operands = timed("row operands", originals[4])
+        lg.bpr_step = bpr_step
+        NativeCSR.sample_bpr = timed("sampling", originals[6])
+        for fmt, sparse in (("block", True), ("hybrid", "hybrid")):
+            spent.clear()
+            step_ms.clear()
+            step_losses.clear()
+            lines = []
+            S.reset_launch_counts()
+            FA.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = lg.pretrain(
+                m, m, n_layers=SCALE_C_LAYERS, latent_dim=SCALE_C_DIM,
+                epochs=SCALE_C_EPOCHS, batch_size=SCALE_C_BATCH, seed=0,
+                sparse=sparse, block_size=SCALE_C_BC, block_rows=SCALE_C_BR,
+                evaluate=False, log=lines.append, steps_per_epoch=steps,
+                device="cuda")
+            torch.cuda.synchronize()
+            call_s = time.perf_counter() - t0
+            n_steps = steps * SCALE_C_EPOCHS
+            runs[fmt] = dict(
+                call_s=call_s, spmm=dict(S.LAUNCHES),
+                adamw=FA.LAUNCHES["fused_adamw"],
+                losses=[float(v) for v in torch.stack(step_losses).cpu()],
+                step_ms_p50=float(np.percentile(step_ms[steps:], 50)),
+                sample_ms=spent.get("sampling", 0.0) / n_steps * 1e3,
+                builds={"normalisation": spent["normalisation"],
+                        "tiles": spent["tiles"],
+                        "row operands": spent.get("row operands", 0.0)},
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                lines=lines)
+            r = runs[fmt]
+            if fmt == "hybrid":   # its row operands are part of to_hybrid
+                r["builds"]["row operands"] = spent["csr operands"]
+                r["builds"]["tiles"] -= spent["csr operands"]
+                hybrid = kept["tiles"]
+            # forward: a product each way a layer; backward: the same again
+            per_dir = 2 * SCALE_C_LAYERS * n_steps + SCALE_C_LAYERS
+            want = {"spmm_rows_fwd": per_dir, "spmm_rows_t": per_dir}
+            assert r["spmm"] == want, (fmt, r["spmm"], want)
+            assert r["adamw"] == n_steps, (fmt, r["adamw"])
+            assert np.isfinite(r["losses"]).all(), (fmt, r["losses"])
+            assert np.isfinite(res.final_user).all() and \
+                np.isfinite(res.final_item).all(), fmt
+            log(f"scale (c) pretrain on the {fmt} operand (br "
+                f"{SCALE_C_BR}, bc {SCALE_C_BC}), {SCALE_C_EPOCHS} epochs of "
+                f"{steps} BPR steps of {SCALE_C_BATCH}, {SCALE_C_LAYERS} "
+                f"layers, D {SCALE_C_DIM}: {call_s:.2f} s in all; host "
+                f"builds {({k: round(v, 3) for k, v in r['builds'].items()})}"
+                f" s; BPR step p50 (second epoch, synced, sampling "
+                f"excluded) {r['step_ms_p50']:.3f} ms; sample_bpr "
+                f"{r['sample_ms']:.3f} ms a batch; launches {r['spmm']} "
+                f"(4 a direction a step + {SCALE_C_LAYERS} for the final "
+                f"tables) and fused_adamw {r['adamw']}; peak "
+                f"{r['peak_gib']:.2f} GiB; {lines} [{card}]")
+    finally:
+        (lg._normalized_sparse_n, lg.to_block_sparse, lg.to_hybrid,
+         S.row_operands, S.BlockSparse._row_operands, lg.bpr_step,
+         NativeCSR.sample_bpr) = originals
+    lb, lh = np.asarray(runs["block"]["losses"]), np.asarray(
+        runs["hybrid"]["losses"])
+    gap = float(np.max(np.abs(lb - lh) / np.abs(lh)))
+    log(f"scale (c): the block and hybrid losses of {len(lb)} steps agree "
+        f"within rtol {gap:.3g} (limit {SCALE_LOSS_RTOL}); first "
+        f"{lh[0]:.6f}, last {lh[-1]:.6f}")
+    assert gap <= SCALE_LOSS_RTOL, (lb.tolist(), lh.tolist())
+
+    # spmm_rows at this operand: the hybrid's row operands
+    entries = {}
+    gen = torch.Generator("cuda").manual_seed(24)
+    for name, op in (("spmm_rows_fwd", hybrid.fwd_rows),
+                     ("spmm_rows_t", hybrid.t_rows)):
+        op = op.to("cuda")
+        n_x = SCALE_C_ITEMS if name == "spmm_rows_fwd" else SCALE_C_USERS
+        x = torch.randn(n_x, SCALE_C_DIM, device="cuda", generator=gen)
+        with torch.no_grad():
+            y = S.spmm_rows(op, x)
+            y2 = S.spmm_rows(op, x)
+            with deterministic(torch), matmul_precision(tf32=False):
+                want = S.spmm_rows_reference(op, x)
+        torch.testing.assert_close(y, want, **TOL)
+        assert torch.equal(y, y2), f"{name}: two launches differ"
+        err = float((y - want).abs().max())
+        ms = cuda_ms(lambda: S.spmm_rows(op, x))
+        plain_ms = cuda_ms(lambda: S.spmm_rows_reference(op, x), iters=3,
+                           warmup=1)
+        lib = library_operand(op, torch, n_x)
+        lib_ms = cuda_ms(lambda: torch.sparse.mm(lib, x))
+        bound_bytes = nnz_bytes(op, SCALE_C_DIM) / HBM_BYTES_PER_S * 1e3
+        bound_ops = 2 * op.nnz * SCALE_C_DIM / F32_FLOP_PER_S * 1e3
+        entries[name] = {
+            "operand": f"{SCALE_C_USERS} x {SCALE_C_ITEMS} hybrid N, "
+                       f"{op.nnz} nonzeros",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            "library_ms": lib_ms,
+            "launches_pretrain": {f: runs[f]["spmm"][name]
+                                  for f in ("block", "hybrid")}}
+        log(f"scale (c) {name} at the {SCALE_C_USERS} x {SCALE_C_ITEMS} "
+            f"operand ({op.nnz} nonzeros, D {SCALE_C_DIM}): {ms:.4f} "
+            f"ms/launch, plain "
+            f"{plain_ms:.4f} ms, torch.sparse.mm {lib_ms:.4f} ms, "
+            f"nonzero-only bound {entries[name]['bound_ms']:.4f} ms "
+            f"({entries[name]['bound_by']}); max abs err {err:.3e} against "
+            f"the plain version (rtol {TOL['rtol']} / atol {TOL['atol']}), "
+            f"two launches bitwise equal [{card}]")
+        del op, x, y, y2, want, lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    del hybrid, kept
+    return dict(runs=runs, graph_s=draw_s + sort_s, kernels=entries)
+
+
+def scale_phase(root, card, torch):
+    """Phase 24: (a) the flagship at the 1M-item catalog, (b) at 10M users
+    x 1M items in one process and on a (1, 2) mesh, (c) LightGCN
+    pretraining at 1M x 200k. Returns the readings."""
+    t_phase = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    out["catalog"] = scale_catalog(card, torch, SCALE_A_DIMS, [])
+    out["catalog"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["users"], pool = scale_users(card, torch)
+    out["mesh_launches"] = scale_mesh(card, torch, pool)
+    out["users"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["pretrain"] = scale_pretrain(root, card, torch)
+    out["pretrain"]["phase_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"scale phase: {out['phase_s']:.1f} s ((a) "
+        f"{out['catalog']['phase_s']:.1f} s, (b) "
+        f"{out['users']['phase_s']:.1f} s, (c) "
+        f"{out['pretrain']['phase_s']:.1f} s)")
+    return out
+
+
+def scale_width_probe(card, torch, width):
+    """--scale-width: phase 24 (a) at ``width``, reported whether it fits
+    or runs out of the card's memory."""
+    stage = []
+    t0 = time.perf_counter()
+    try:
+        r = scale_catalog(card, torch, width, stage)
+    except torch.cuda.OutOfMemoryError as e:
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"scale (a) width probe dims [{width}]: out of memory in "
+            f"{stage[0]} after {time.perf_counter() - t0:.1f} s: "
+            f"{str(e).splitlines()[0]} [{card}]")
+        return {"dims": width, "fits": False, "stage": stage[0]}
+    log(f"scale (a) width probe dims [{width}]: fits, peak allocated "
+        f"{r['peak_gib']:.2f} GiB [{card}]")
+    return {"dims": width, "fits": True, **r}
+
+
 def main() -> int:
     import argparse
 
@@ -5459,6 +6364,8 @@ def main() -> int:
         return serve_mesh_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--fault-cli"]:   # a training process of phase 22
         return fault_cli(sys.argv[2:])
+    if sys.argv[1:2] == ["--scale-mesh-worker"]:   # a rank of phase 24 (b)
+        return scale_mesh_worker(sys.argv[2:])
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="FILE", default=None,
                         help="write torch.profiler tables of 5 lightGCN "
@@ -5490,6 +6397,14 @@ def main() -> int:
                         help="run only phase 23 (train_steps_per_call and "
                              "eval_batches_per_call as CUDA graphs against "
                              "single steps, the flagship and DNN)")
+    parser.add_argument("--scale-phase", action="store_true",
+                        help="run only phase 24 (the JAX package's scale "
+                             "geometries: the 1M-item catalog, 10M users x "
+                             "1M items, LightGCN pretraining at 1M x 200k)")
+    parser.add_argument("--scale-width", type=int, default=None,
+                        metavar="DIMS",
+                        help="run only phase 24 (a) at dims [DIMS] and "
+                             "report whether it fits the card's memory")
     parser.add_argument("--mesh-diagnostic", nargs="?", const="all",
                         choices=("all", "transformer"), default=None,
                         help="print what phase 19's and phase 21's "
@@ -5557,6 +6472,27 @@ def main() -> int:
         fused = fused_phase(root, card, torch, power_law_graph(0))
         log(f"fused readings {json.dumps(fused)}")
         log(f"chip_smoke (phase 23 only): "
+            f"{time.perf_counter() - t_start:.1f} s")
+        log(card)
+        return 0
+    if args.scale_width is not None:
+        FA.build_kernel()
+        log(card)
+        probe = scale_width_probe(card, torch, args.scale_width)
+        log(f"scale width probe {json.dumps(probe)}")
+        log(f"chip_smoke (phase 24 (a) at dims [{args.scale_width}] only): "
+            f"{time.perf_counter() - t_start:.1f} s")
+        log(card)
+        return 0
+    if args.scale_phase:
+        S.build_kernels()
+        FA.build_kernel()
+        log(card)
+        log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+            f"{torch.cuda.get_device_name(0)}")
+        scale = scale_phase(root, card, torch)
+        log(f"scale readings {json.dumps(scale)}")
+        log(f"chip_smoke (phase 24 only): "
             f"{time.perf_counter() - t_start:.1f} s")
         log(card)
         return 0
@@ -5764,8 +6700,22 @@ def main() -> int:
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
+    # 24. the JAX package's scale geometries
+    gc.collect()
+    torch.cuda.empty_cache()
+    scale = scale_phase(root, card, torch)
+    entry["launches_scale_catalog_epoch"] = scale["catalog"]["launches"]
+    entry["launches_scale_users_steps"] = scale["users"]["launches"]
+    entry["launches_scale_mesh_steps_by_rank"] = scale["mesh_launches"]
+    entry["launches_scale_pretrain"] = {
+        f: r["adamw"] for f, r in scale["pretrain"]["runs"].items()}
+    for k in kernels[:2]:
+        at = scale["pretrain"]["kernels"][k["name"]]
+        k["launches_scale_pretrain"] = at.pop("launches_pretrain")
+        k["scale_operand"] = at
+
     # results
-    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of phases 1-23")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of phases 1-24")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -11,14 +11,17 @@ and replays the graph.
 
 How a group goes (``TrainerGraphs.train`` and ``TrainerGraphs.eval``):
 
-- The first group of each epoch runs eagerly, as does the first group of
-  an evaluation shape, the first after the state's tensors changed (a new
-  ``init_state``) and the first with another eval generator: real steps,
-  which also warm Triton's compile, cuBLAS's handles and the allocator.
-  When no graph of the shape is bound yet, it is captured right after that
-  group (once for a Trainer's state, in its first epoch). Capture runs no
-  kernel, so the state stays that of the eager steps. Every later group of
-  the shape replays.
+- A group runs eagerly when no graph of its shape is bound: the first
+  train group of a shape, the first after the state's tensors changed (a
+  new ``init_state``), the first group of an evaluation shape and the
+  first with another eval generator: real steps, which also warm Triton's
+  compile, cuBLAS's handles and the allocator. The graph is captured right
+  after that group (once for a Trainer's state, in its first epoch).
+  Capture runs no kernel, so the state stays that of the eager steps.
+  Every later group of the shape replays, the first group of a later epoch
+  too: an eager group beside the graphs' pool would need a second set of a
+  step's gradients and activations (at the 1M-item catalog, dims [500],
+  the second epoch ran out of the card's memory that way).
 - The train state is the graph's carry: the parameters, the moments, the
   masters, K1's step count and the Lt ring are read and written in place,
   the very tensors the ``TrainState`` holds (``Trainer._update`` copies
@@ -204,27 +207,22 @@ class TrainerGraphs:
         return sum(g.replays for g in (*self.train_graphs.values(),
                                        *self.eval_graphs.values()))
 
-    def train(self, state, xs: np.ndarray, idxs: np.ndarray,
-              eager: bool = False):
-        """One group of K host batches: a replay, or (``eager``: an
-        epoch's first group; or no graph bound to ``state``) the eager
-        group, then the capture if no graph is bound. Returns (state, the
-        losses [K])."""
+    def train(self, state, xs: np.ndarray, idxs: np.ndarray):
+        """One group of K host batches: a replay of the graph bound to
+        ``state``, or without one the eager group, then the capture.
+        Returns (state, the losses [K])."""
         tr = self._trainer()
         key = (_shape_key(xs), _shape_key(idxs))
         g = self.train_graphs.get(key)
-        bound = g is not None and g.binds(state)
-        if bound and not eager:
+        if g is not None and g.binds(state):
             return g.run(tr, state, xs, idxs)
-        if not bound:
-            self.train_graphs.pop(key, None)   # its pool blocks go back
+        self.train_graphs.pop(key, None)   # its pool blocks go back
         dev = tr.device
         state, losses = tr.train_steps(
             state, _pinned(xs).to(dev, non_blocking=True),
             _pinned(idxs).to(dev, non_blocking=True))
-        if not bound:
-            self.train_graphs[key] = self._captured(
-                TrainGraph(tr, state, xs, idxs, self.pool))
+        self.train_graphs[key] = self._captured(
+            TrainGraph(tr, state, xs, idxs, self.pool))
         return state, losses
 
     def eval(self, rows: Batches, uids: Batches, masks, sampling_steps: int,

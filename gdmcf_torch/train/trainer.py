@@ -25,10 +25,10 @@ The fused calls, the counterparts of the JAX package's ``_train_multi`` and
 (``train_steps``: K steps over stacked batches, exactly the math of K
 ``train_step`` calls) and the evaluations group ``eval_batches_per_call``
 batches, with the JAX package's rules for a trailing partial batch. On the
-card a group is a CUDA graph (``train/graphs.py``): an epoch's first group
-runs eagerly, the graph is captured after the first one and replayed for
-every later group; on the CPU a group runs as its steps one after
-another, the plain version. On a mesh
+card a group is a CUDA graph (``train/graphs.py``): the first group runs
+eagerly, the graph is captured after it and replayed for every later
+group, in this epoch and the next ones; on the CPU a group runs as its
+steps one after another, the plain version. On a mesh
 (gloo collectives cannot be captured) and under ``debug_nans`` (a host
 check after every step) K is 1: ``fused_k`` decides before any capture.
 
@@ -537,15 +537,15 @@ class Trainer:
             del grads
         return torch.stack(losses)
 
-    def _train_group(self, state: TrainState, batches, first=False):
+    def _train_group(self, state: TrainState, batches):
         """One fused group of host batches [(x, idx)]: one CUDA graph
-        replay on the card (``TrainerGraphs.train``; ``first``, an epoch's
-        first group, runs eagerly), its steps one after another on the
-        CPU. Returns (state, the losses [K])."""
+        replay on the card (``TrainerGraphs.train``; the group before the
+        capture runs eagerly), its steps one after another on the CPU.
+        Returns (state, the losses [K])."""
         xs = np.stack([b[0] for b in batches])
         idxs = np.stack([b[1] for b in batches])
         if self.device.type == "cuda":
-            return self.graphs().train(state, xs, idxs, eager=first)
+            return self.graphs().train(state, xs, idxs)
         return self.train_steps(state, torch.from_numpy(xs),
                                 torch.from_numpy(idxs))
 
@@ -626,8 +626,7 @@ class Trainer:
                 if k == 1:
                     state = single(state, x, idx)
                 else:
-                    state, ls = self._train_group(state, pending,
-                                                  first=not losses)
+                    state, ls = self._train_group(state, pending)
                     losses.append(ls)
                 pending.clear()
         for b in pending:   # fewer than K left: single steps

@@ -85,17 +85,36 @@ def test_train_steps_match_the_jax_train_multi(monkeypatch, case):
     monkeypatch.setattr(JA, "_MIN_KERNEL_ELEMS", 256)
     jt, jstate0, tt, batches, make_draws = {
         "flagship": flagship_case, "DNN": dnn_case}[case]()
+    assert_train_multi_matches(jt, jstate0, tt, batches, make_draws)
+
+
+def assert_train_multi_matches(jt, jstate0, tt, batches, make_draws,
+                               excuse=None):
+    """``tt.train_steps`` over ``batches`` [(x, idx)] against the JAX
+    Trainer ``jt``'s ``_train_multi`` from its init ``jstate0`` (the port
+    holds the same parameters), with the JAX draws injected: the losses,
+    the Lt ring, the parameters and the moments at the tolerances above.
+    ``excuse``: called as ``excuse(name, past, draws, moments)`` for a
+    parameter, or a moment of it, with elements past its tolerance
+    (``past``, a mask), with the injected draws and the JAX single steps'
+    moments after each step ([{"mu", "nu"}]); returns the mask of the
+    elements it accounts for, and no other element may be past. Returns
+    the JAX state after the steps."""
+    k = len(batches)
     assert jt._opt_impl == "kernel" and jt._fused_interpret
     # the JAX draws of each step: the single steps' key chain, which
     # _train_multi's scan repeats (a step donates its state: the moments
     # before the last step are kept as numpy)
-    draws, seq = [], jstate0
+    draws, seq, moments = [], jstate0, []
     for x, idx in batches:
         _, step_key = jax.random.split(seq.key)
         draws.append(make_draws(jt.diffusion, seq.lt, step_key))
         before = {w: OH.bridged(getattr(seq.opt_state, w))
                   for w in ("mu", "nu")}
         seq, _ = jt._train_step(seq, jnp.asarray(x), jnp.asarray(idx))
+        if excuse is not None:
+            moments.append({w: OH.bridged(getattr(seq.opt_state, w))
+                             for w in ("mu", "nu")})
     xs = np.stack([b[0] for b in batches])
     idxs = np.stack([b[1] for b in batches])
     # a fresh init: the same seeded parameters the port was given
@@ -103,8 +122,8 @@ def test_train_steps_match_the_jax_train_multi(monkeypatch, case):
                                       jnp.asarray(idxs))
     tstate = tt.init_state()
     tstate, tlosses = tt.train_steps(tstate, t_(xs), t_(idxs), draws=draws)
-    assert tstate.step == 3 and int(jstate.step) == 3
-    assert int(tstate.opt_state.count) == 3
+    assert tstate.step == k and int(jstate.step) == k
+    assert int(tstate.opt_state.count) == k
     np.testing.assert_allclose(tlosses.numpy(), np.asarray(jlosses),
                                rtol=1e-5)
     np.testing.assert_array_equal(tstate.lt.count.numpy(), jstate.lt.count)
@@ -113,8 +132,17 @@ def test_train_steps_match_the_jax_train_multi(monkeypatch, case):
     lr = tt.cfg.lr
     want_p = OH.bridged(jstate.params)
     for name, p in tstate.params.items():
-        np.testing.assert_allclose(p.detach().numpy(), want_p[name],
-                                   rtol=1e-4, atol=1e-3 * lr, err_msg=name)
+        if excuse is None:
+            np.testing.assert_allclose(p.detach().numpy(), want_p[name],
+                                       rtol=1e-4, atol=1e-3 * lr,
+                                       err_msg=name)
+            continue
+        w = np.asarray(want_p[name])
+        past = ~(np.abs(p.detach().numpy() - w)
+                 <= 1e-3 * lr + 1e-4 * np.abs(w))
+        if past.any():
+            left = past & ~excuse(name, past, draws, moments)
+            assert not left.any(), (name, int(left.sum()))
     for which, beta in (("mu", 0.9), ("nu", 0.999)):
         want_m = OH.bridged(getattr(jstate.opt_state, which))
         for name, m in getattr(tstate.opt_state, which).items():
@@ -124,8 +152,11 @@ def test_train_steps_match_the_jax_train_multi(monkeypatch, case):
                      * (np.abs(w) + beta * np.abs(
                          np.asarray(before[which][name], np.float32)))
                      + 1e-4 * np.abs(w) + 1e-5 * scale)
-            assert not (np.abs(m.float().numpy() - w) > bound).any(), \
-                (which, name)
+            past = np.abs(m.float().numpy() - w) > bound
+            if excuse is not None and past.any():
+                past &= ~excuse(name, past, draws, moments)
+            assert not past.any(), (which, name)
+    return jstate
 
 
 # ---------------------------------------------------------------------------

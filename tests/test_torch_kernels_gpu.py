@@ -350,7 +350,8 @@ def test_adamw_cuda_tensor_refuses_instead_of_falling_back(cuda):
 
 def test_fused_call_graphs_equal_eager_steps(cuda):
     """``train_steps_per_call`` 4 (the first group eager, then its CUDA
-    graph captured and replayed, ``train/graphs.py``) against 1 on the card
+    graph captured and replayed in both epochs, ``train/graphs.py``)
+    against 1 on the card
     from one seed, two epochs: the parameters, moments, Lt, step count,
     loss sums and the generator's state bitwise; K1's launches counted as
     the eager ones plus captured x replays; ``evaluate_streaming`` at
@@ -404,9 +405,9 @@ def test_fused_call_graphs_equal_eager_steps(cuda):
                                       for a, b in zip(i1, i4))
     graphs = tr4.graphs()
     train_g = list(graphs.train_graphs.values())
-    # 10 batches an epoch: groups of 4, 4 and two single steps; each
-    # epoch's first group eager (the graph captured after the first
-    # epoch's), the second replayed
-    assert len(train_g) == 1 and train_g[0].replays == 2
+    # 10 batches an epoch: groups of 4, 4 and two single steps; the first
+    # epoch's first group eager (the graph captured after it), every
+    # later group replayed, the second epoch's first group too
+    assert len(train_g) == 1 and train_g[0].replays == 3
     per_step = train_g[0].launches["fused_adamw"] // 4
     assert l1 == l4 == 20 * per_step
