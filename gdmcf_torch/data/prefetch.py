@@ -5,6 +5,8 @@ One background thread runs the host's batch assembly (numpy and the
 ``NativeCSR`` engine) ahead of the training loop, bounded by a small queue.
 Device copies stay on the caller's thread; only the host work moves. Order
 is kept exactly, so training is bit-identical with prefetch on or off.
+The consumer's wait for each item, the end of the stream's included, is
+the span ``gdmcf.prefetch.wait`` (``utils.profiling.span``).
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Iterable, Iterator, TypeVar
+
+from gdmcf_torch.utils.profiling import span
 
 T = TypeVar("T")
 
@@ -61,7 +65,8 @@ def prefetched(it: Iterable[T], depth: int = 2) -> Iterator[T]:
         threading.Thread(target=worker, daemon=True).start()
         try:
             while True:
-                item = q.get()
+                with span("gdmcf.prefetch.wait"):
+                    item = q.get()
                 if isinstance(item, tuple) and len(item) == 2 \
                         and item[0] is _SENTINEL:
                     if item[1] is not None:

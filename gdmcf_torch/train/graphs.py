@@ -41,6 +41,12 @@ How a group goes (``TrainerGraphs.train`` and ``TrainerGraphs.eval``):
 
 No fallback: a capture or a replay that fails raises. On the CPU there are
 no graphs; the Trainer runs a group's steps one after another.
+
+Spans (``utils.profiling.span``), on the host around each part of a group:
+``gdmcf.graphs.{train,eval}.feed`` (the copies into the static buffers),
+``.replay`` (the launch, and a train group's clone of its losses),
+``.eager`` (the group run before a capture) and ``.capture``. None is
+inside a captured body: a replay runs no host code.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ import numpy as np
 import torch
 
 from gdmcf_torch.ops import fused_adamw as FA
+from gdmcf_torch.utils.profiling import span
 
 Batches = Union[np.ndarray, Sequence[torch.Tensor]]
 
@@ -134,10 +141,12 @@ class TrainGraph(_Captured):
         if not self.binds(state):
             raise RuntimeError("the train state holds other tensors than "
                                "the graph captured: capture it again")
-        _feed(self.xs, xs)
-        _feed(self.idxs, idxs)
-        _feed(self.lr, trainer._lr_vector(state.step, self.k))
-        losses = self.replay().clone()
+        with span("gdmcf.graphs.train.feed"):
+            _feed(self.xs, xs)
+            _feed(self.idxs, idxs)
+            _feed(self.lr, trainer._lr_vector(state.step, self.k))
+        with span("gdmcf.graphs.train.replay"):
+            losses = self.replay().clone()
         state.step += self.k
         return state, losses
 
@@ -172,11 +181,13 @@ class EvalGraph(_Captured):
         super().__init__(generator, pool, body)
 
     def run(self, rows: Batches, uids: Batches, masks) -> torch.Tensor:
-        _feed(self.xs, rows)
-        _feed(self.us, uids)
-        if self.ms is not None:
-            _feed(self.ms, masks)
-        return self.replay()
+        with span("gdmcf.graphs.eval.feed"):
+            _feed(self.xs, rows)
+            _feed(self.us, uids)
+            if self.ms is not None:
+                _feed(self.ms, masks)
+        with span("gdmcf.graphs.eval.replay"):
+            return self.replay()
 
 
 def _shape_key(items: Batches):
@@ -218,11 +229,13 @@ class TrainerGraphs:
             return g.run(tr, state, xs, idxs)
         self.train_graphs.pop(key, None)   # its pool blocks go back
         dev = tr.device
-        state, losses = tr.train_steps(
-            state, _pinned(xs).to(dev, non_blocking=True),
-            _pinned(idxs).to(dev, non_blocking=True))
-        self.train_graphs[key] = self._captured(
-            TrainGraph(tr, state, xs, idxs, self.pool))
+        with span("gdmcf.graphs.train.eager"):
+            state, losses = tr.train_steps(
+                state, _pinned(xs).to(dev, non_blocking=True),
+                _pinned(idxs).to(dev, non_blocking=True))
+        with span("gdmcf.graphs.train.capture"):
+            self.train_graphs[key] = self._captured(
+                TrainGraph(tr, state, xs, idxs, self.pool))
         return state, losses
 
     def eval(self, rows: Batches, uids: Batches, masks, sampling_steps: int,
@@ -247,13 +260,15 @@ class TrainerGraphs:
                     if isinstance(t, np.ndarray) else t)
 
         out = []
-        for j in range(k):
-            x = dev(rows, j)
-            out.append(tr.eval_step(
-                x, dev(uids, j), x if masks is None else dev(masks, j),
-                sampling_steps=sampling_steps, top_k=top_k,
-                generator=generator))
-        self.eval_graphs[key] = self._captured(EvalGraph(
-            tr, rows, uids, masks, sampling_steps, top_k, generator,
-            self.pool))
+        with span("gdmcf.graphs.eval.eager"):
+            for j in range(k):
+                x = dev(rows, j)
+                out.append(tr.eval_step(
+                    x, dev(uids, j), x if masks is None else dev(masks, j),
+                    sampling_steps=sampling_steps, top_k=top_k,
+                    generator=generator))
+        with span("gdmcf.graphs.eval.capture"):
+            self.eval_graphs[key] = self._captured(EvalGraph(
+                tr, rows, uids, masks, sampling_steps, top_k, generator,
+                self.pool))
         return torch.stack(out)

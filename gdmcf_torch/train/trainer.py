@@ -92,6 +92,7 @@ from gdmcf_torch.parallel.mesh import axis_group, axis_index, axis_size
 from gdmcf_torch.parallel.multihost import is_main_process, process_count
 from gdmcf_torch.train.state import (TrainState, cast_params_,
                                      create_train_state)
+from gdmcf_torch.utils.profiling import span
 
 # the knobs of the fused calls, by what they group
 _FUSE_KNOBS = {"train": "train_steps_per_call",
@@ -566,6 +567,10 @@ class Trainer:
         than K left at the end run as single steps. Every grouping gives
         the same steps, draws and losses as K = 1.
 
+        Spans (``utils.profiling.span``): ``gdmcf.train.group`` around each
+        fused group, ``gdmcf.train.single`` around each single step and
+        ``gdmcf.train.loss_fetch`` around the losses' fetch at the end.
+
         On a mesh each dp group trains on its own ``RowSlice`` of the rows
         (``local_row_range``) with its 1/dp block of every global batch,
         and the trailing partial batch is always dropped: every group must
@@ -599,12 +604,13 @@ class Trainer:
         losses, pending = [], []
 
         def single(state, x, idx):
-            if self.mesh is not None:   # this rank's dp block, checked
-                x_t, idx_t = self._put_batch(x, idx)
-            else:
-                x_t, idx_t = torch.from_numpy(x), torch.from_numpy(idx)
-            state, loss = self.train_step(state, x_t, idx_t)
-            losses.append(loss.reshape(1))
+            with span("gdmcf.train.single"):
+                if self.mesh is not None:   # this rank's dp block, checked
+                    x_t, idx_t = self._put_batch(x, idx)
+                else:
+                    x_t, idx_t = torch.from_numpy(x), torch.from_numpy(idx)
+                state, loss = self.train_step(state, x_t, idx_t)
+                losses.append(loss.reshape(1))
             return state
 
         # the host assembles the next batches on a thread of its own
@@ -626,12 +632,14 @@ class Trainer:
                 if k == 1:
                     state = single(state, x, idx)
                 else:
-                    state, ls = self._train_group(state, pending)
+                    with span("gdmcf.train.group"):
+                        state, ls = self._train_group(state, pending)
                     losses.append(ls)
                 pending.clear()
         for b in pending:   # fewer than K left: single steps
             state = single(state, *b)
-        total = float(torch.cat(losses).sum()) if losses else 0.0
+        with span("gdmcf.train.loss_fetch"):
+            total = float(torch.cat(losses).sum()) if losses else 0.0
         return state, total
 
     # -- eval --------------------------------------------------------------
@@ -935,7 +943,15 @@ class Trainer:
         ``eval_batches_per_call`` K > 1 fuses as ``evaluate`` does: the
         pending equal-shape batches run as one group when K are pending or
         a batch of another shape comes (``_eval_group``, one host->device
-        copy of the stacked group through pinned memory)."""
+        copy of the stacked group through pinned memory).
+
+        Spans (``utils.profiling.span``): per batch ``gdmcf.eval.assemble``
+        (the union of its rows and its mask), ``gdmcf.eval.ground_truth``
+        (its ground truth's gather and copy) and ``gdmcf.eval.metrics``
+        (the metric sums enqueued); ``gdmcf.eval.group`` around each fused
+        group's stack and call, ``gdmcf.eval.single`` around each batch run
+        alone, and ``gdmcf.eval.fetch`` around the means' fetch at the
+        end."""
         cfg = self.cfg
         k, _ = self.fused_k("eval")
         generator = self._eval_generator(generator)
@@ -971,29 +987,37 @@ class Trainer:
                 return   # a replicated batch counts once
             # bit-packed ground truth and on-device sums: dense [B, n_item]
             # rows would be the largest per-batch transfer
-            if packed_gt:
-                acc.add_packed(self._to_device(gt_csr.gather_packed(idx)),
-                               pred, self.n_item)
-            else:
-                acc.add(gt_csr.gather(idx), pred.cpu().numpy())
+            with span("gdmcf.eval.ground_truth"):
+                gt = (self._to_device(gt_csr.gather_packed(idx)) if packed_gt
+                      else gt_csr.gather(idx))
+            with span("gdmcf.eval.metrics"):
+                if packed_gt:
+                    acc.add_packed(gt, pred, self.n_item)
+                else:
+                    acc.add(gt, pred.cpu().numpy())
 
         def single(idx, rows, mask, sharded=False):
-            rows_d, idx_d = self._put_batch(rows, idx, replicate=not sharded)
-            mask_d = rows_d if mask is rows else self._to_device(mask)
-            count(idx, sharded, self.eval_step(
-                rows_d, idx_d, mask_d, sampling_steps=cfg.sampling_steps,
-                top_k=top_k, generator=generator,
-                block=self.row_block(idx.size) if sharded else None))
+            with span("gdmcf.eval.single"):
+                rows_d, idx_d = self._put_batch(rows, idx,
+                                                replicate=not sharded)
+                mask_d = rows_d if mask is rows else self._to_device(mask)
+                pred = self.eval_step(
+                    rows_d, idx_d, mask_d, sampling_steps=cfg.sampling_steps,
+                    top_k=top_k, generator=generator,
+                    block=self.row_block(idx.size) if sharded else None)
+            count(idx, sharded, pred)
 
         def flush(pending):
             if len(pending) == 1:
                 single(*pending[0])
             elif pending:
-                ids = self._eval_group(
-                    np.stack([p[1] for p in pending]),
-                    np.stack([p[0] for p in pending]),
-                    None if own_mask else np.stack([p[2] for p in pending]),
-                    top_k, generator)
+                with span("gdmcf.eval.group"):
+                    ids = self._eval_group(
+                        np.stack([p[1] for p in pending]),
+                        np.stack([p[0] for p in pending]),
+                        None if own_mask
+                        else np.stack([p[2] for p in pending]),
+                        top_k, generator)
                 for j, p in enumerate(pending):
                     count(p[0], False, ids[j])
             pending.clear()
@@ -1005,8 +1029,9 @@ class Trainer:
             if sharded:
                 lo, lb = self._local_eval_slice(start, idx.size)
                 idx = np.arange(lo, lo + lb, dtype=np.int64)
-            rows = union(input_csrs, idx)
-            mask = rows if own_mask else union(mask_csrs, idx)
+            with span("gdmcf.eval.assemble"):
+                rows = union(input_csrs, idx)
+                mask = rows if own_mask else union(mask_csrs, idx)
             if k == 1:   # always on a mesh, the only place a batch shards
                 single(idx, rows, mask, sharded)
                 continue
@@ -1016,9 +1041,10 @@ class Trainer:
             if len(pending) == k:
                 flush(pending)
         flush(pending)
-        if use_reduce:
-            return self._reduce_metric_acc(acc)
-        return acc.result()
+        with span("gdmcf.eval.fetch"):
+            if use_reduce:
+                return self._reduce_metric_acc(acc)
+            return acc.result()
 
     # -- the main loop -------------------------------------------------------
     def fit(self, train_csr, valid_csr, test_csr, log=print,

@@ -217,8 +217,8 @@ def test_the_host_utility_and_parity_modules_are_among_those_checked():
         assert m in MODULES, m
     mods = _modules_after(
         "from gdmcf_torch.data.prefetch import prefetched\n"
-        "from gdmcf_torch.utils.profiling import (StepTimer, trace, "
-        "compiled_cost)\n"
+        "from gdmcf_torch.utils.profiling import (span, span_totals, "
+        "trace)\n"
         "from gdmcf_torch.data.graph_convert import (adjacency_to_edge, "
         "topk_set)\n"
         "from gdmcf_torch.data.native import NativeCSR\n"

@@ -22,7 +22,6 @@ from gdmcf_torch.data.prefetch import prefetched  # noqa: E402
 from gdmcf_torch.utils import profiling as TP  # noqa: E402
 from gdmcf_tpu.data import graph_convert as JGC  # noqa: E402
 from gdmcf_tpu.data.native import NativeCSR as JNative  # noqa: E402
-from gdmcf_tpu.utils.profiling import StepTimer as JStepTimer  # noqa: E402
 
 
 # ---------------------------------------------------------------------------
@@ -134,36 +133,6 @@ def test_train_epoch_losses_equal_with_prefetch_on_and_off(tmp_path,
 # ---------------------------------------------------------------------------
 # profiling
 # ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("warmup", [0, 3])
-def test_step_timer_times_after_the_warmup_as_jax_does(warmup):
-    ours, theirs = TP.StepTimer(warmup), JStepTimer(warmup)
-    for timer in (ours, theirs):
-        assert timer.steps_per_s() == 0.0
-        for _ in range(warmup):
-            timer.tick()
-        assert timer.steps_per_s() == 0.0
-        for _ in range(5):
-            timer.tick()
-            time.sleep(0.002)
-    for timer in (ours, theirs):
-        assert timer._timed_steps == 5 and timer._count == warmup + 5
-        # the rate only falls while no step ticks: read between two rates
-        before = timer.steps_per_s()
-        examples = timer.examples_per_s(10)
-        after = timer.steps_per_s()
-        assert 0.0 < after <= before < 600.0
-        assert 10 * after <= examples <= 10 * before
-
-
-@pytest.mark.parametrize("m,k,n", [(8, 16, 4), (33, 7, 65)])
-def test_compiled_cost_counts_the_product_flops(m, k, n):
-    a, b = torch.ones(m, k), torch.ones(k, n)
-    cost = TP.compiled_cost(torch.matmul, a, b)
-    assert cost == {"flops": 2 * m * n * k}
-    # FlopCounterMode counts the products: the tanh adds nothing
-    assert TP.compiled_cost(lambda x: torch.tanh(x) @ b, a) == cost
-
 
 def test_trace_writes_a_trace_file(tmp_path):
     a = torch.randn(32, 32)
