@@ -11,7 +11,8 @@ same row gather, and each product is differentiable through
 direction, one more launch).
 
 ``pretrain`` is the reference pretrainer's recipe (BPR with L2 on the
-layer-0 rows, Adam, ranking evaluation with natural-log NDCG), with the
+layer-0 rows, Adam, ranking evaluation with natural-log NDCG), its steps
+run by ``BPRPretrainer`` (which a caller can also step alone), with the
 JAX package's draws: one ``np.random.default_rng(seed)`` picks each batch's
 users and then the seed of ``NativeCSR.sample_bpr``, so at equal initial
 tables the port trains on the JAX package's triples. The Adam update is the
@@ -22,8 +23,10 @@ added after the square root).
 
 from __future__ import annotations
 
+import copy
 import os
 import warnings
+from collections import deque
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -40,6 +43,7 @@ from gdmcf_torch.ops.spmm import (BlockSparse, HybridSparse, RowOperand,
                                   degree_sort_permutation, spmm_op,
                                   to_block_sparse, to_hybrid)
 from gdmcf_torch.ops.topk import chunked_topk
+from gdmcf_torch.utils.profiling import span
 
 # a dense [n_user, n_item] f32 N above this many bytes switches the
 # lightGCN backbone and pretraining to a sparse operand, and turns off
@@ -224,7 +228,8 @@ def propagator(train_csr: sp.spmatrix, n_layers: int, sparse,
     names: ``"hybrid"`` (tiles of ``block_rows or 8`` x ``block_size`` and
     the COO remainder), ``True`` (tiles of ``block_rows or block_size`` x
     ``block_size``) or ``False`` (the dense N). The sparse forms keep only
-    their two row operands on the device."""
+    their two row operands on the device, (N's, N^T's) as
+    ``prop.operands``."""
     dev = resolve_device(device)
     n_user = train_csr.shape[0]
     if sparse == "hybrid":
@@ -240,8 +245,12 @@ def propagator(train_csr: sp.spmatrix, n_layers: int, sparse,
         return lambda e0: propagate(e0[:n_user], e0[n_user:], n_mat,
                                     n_layers)
     fwd, t = a.fwd_rows.to(dev), a.t_rows.to(dev)
-    return lambda e0: propagate_rows(e0[:n_user], e0[n_user:], fwd, t,
-                                     n_layers)
+
+    def prop(e0):
+        return propagate_rows(e0[:n_user], e0[n_user:], fwd, t, n_layers)
+
+    prop.operands = (fwd, t)
+    return prop
 
 
 def initial_table(n_rows: int, dim: int, seed: int, device=None
@@ -279,6 +288,153 @@ def _host_copy(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", copy=True).numpy()
 
 
+class PretrainerState(NamedTuple):
+    """A saved start of a ``BPRPretrainer``: host copies of the table, the
+    moments and K1's count, the host generator's state and the steps
+    taken."""
+
+    e0: np.ndarray
+    mu: np.ndarray
+    nu: np.ndarray
+    count: np.ndarray
+    rng: dict
+    n_steps: int
+
+
+class BPRPretrainer:
+    """BPR pretraining one step at a time: what ``pretrain`` runs, and what
+    a caller steps, puts back to a saved start and asks for its triples.
+
+    Holds the table ``e0`` (a leaf updated in place), K1's state with
+    float32 moments, the propagator over ``sparse``'s operand, the
+    ``NativeCSR`` it samples from and the host generator
+    ``np.random.default_rng(seed)``, which draws each step's users
+    (``_choose_users``) and then the seed of ``sample_bpr``.
+
+    ``steps(n)`` runs n steps and returns their losses, left on the
+    device; ``loss_total`` fetches their sum. ``state()`` / ``restore``
+    save and put back the table, the moments, K1's count and the
+    generator. ``recent(n)`` returns the triples of the last n steps
+    (at most ``keep_batches`` are kept). Spans (``utils.profiling.span``,
+    off unless a profiler records): ``gdmcf.bpr.sample`` (the users and
+    ``sample_bpr``), ``gdmcf.bpr.feed`` (the stack, pin and copy),
+    ``gdmcf.bpr.step`` (``bpr_step``'s dispatch), ``gdmcf.bpr.loss_fetch``.
+    ``n_steps`` counts the steps trained on since construction or the
+    restored start; ``operands()`` gives the row operands of N and N^T
+    the products run on (None for the dense N).
+    """
+
+    def __init__(self, train_csr: sp.spmatrix, n_layers: int = 3,
+                 latent_dim: int = 64, batch_size: int = 1024,
+                 lr: float = 0.005, decay: float = 1e-4, seed: int = 0,
+                 sparse: "bool | str | None" = None, block_size: int = 128,
+                 block_rows: Optional[int] = None, device=None,
+                 init_table: Optional[np.ndarray] = None,
+                 keep_batches: int = 8):
+        if sparse not in (None, True, False, "hybrid"):
+            # any other truthy value would fall through to the block-sparse
+            # path: a misspelt format name fails instead
+            raise ValueError(f"sparse={sparse!r}: expected None, True, "
+                             "False, or 'hybrid'")
+        dev = self.device = resolve_device(device)
+        self.n_user, self.n_item = train_csr.shape
+        if sparse is None:
+            sparse = self.n_user * self.n_item * 4 > _DENSE_LIMIT_BYTES
+        self.prop = propagator(train_csr, n_layers, sparse, block_size,
+                               block_rows, dev)
+        shape = (self.n_user + self.n_item, latent_dim)
+        if init_table is None:
+            e0 = initial_table(shape[0], latent_dim, seed, dev)
+        else:
+            if tuple(np.shape(init_table)) != shape:
+                raise ValueError(f"init_table shape {np.shape(init_table)} "
+                                 f"!= {shape}")
+            e0 = torch.tensor(np.asarray(init_table, np.float32), device=dev)
+        self.e0 = e0.requires_grad_(True)
+        self.opt_state = fused_adamw_init({"e0": e0}, torch.float32)
+        self.rng = np.random.default_rng(seed)
+        self.batch_size, self.lr, self.decay = batch_size, lr, decay
+        # BPR consumes membership, so count-valued cells binarize here
+        self.ncsr = NativeCSR.from_scipy(train_csr, strict=False)
+        self._batches = deque(maxlen=keep_batches)
+        self.n_steps = 0
+
+    def steps(self, n: int) -> torch.Tensor:
+        """Run ``n`` BPR steps; returns their [n] losses on the device."""
+        losses = []
+        for _ in range(n):
+            with span("gdmcf.bpr.sample"):
+                users = _choose_users(self.rng, self.n_user, self.batch_size)
+                pos, neg = self.ncsr.sample_bpr(
+                    users, int(self.rng.integers(2 ** 62)))
+            with span("gdmcf.bpr.feed"):
+                host = np.stack([users, pos, neg]).astype(np.int64)
+                batch = torch.from_numpy(host)
+                if self.device.type == "cuda":
+                    # a copy from pageable memory would wait for the
+                    # stream: pinned and non-blocking, the host samples
+                    # the next batch while the device runs this step
+                    batch = batch.pin_memory().to(self.device,
+                                                  non_blocking=True)
+            with span("gdmcf.bpr.step"):
+                self.opt_state, loss = bpr_step(
+                    self.e0, self.opt_state, self.prop, batch, self.n_user,
+                    self.lr, self.decay)
+            losses.append(loss)
+            self._batches.append(host)
+            self.n_steps += 1
+        return torch.stack(losses) if losses else torch.zeros(
+            0, device=self.device)
+
+    def loss_total(self, losses: torch.Tensor) -> float:
+        """The sum of ``steps``' losses, fetched to the host."""
+        with span("gdmcf.bpr.loss_fetch"):
+            return float(losses.sum())
+
+    def recent(self, n: int) -> np.ndarray:
+        """The [n, 3, B] int64 (user, positive, negative) triples of the
+        last ``n`` steps, oldest first."""
+        if not 0 <= n <= len(self._batches):
+            raise ValueError(f"{n} steps asked for; {len(self._batches)} "
+                             "kept")
+        kept = list(self._batches)[len(self._batches) - n:]
+        return np.stack(kept) if kept else np.zeros(
+            (0, 3, self.batch_size), np.int64)
+
+    def state(self) -> PretrainerState:
+        opt = self.opt_state
+        return PretrainerState(
+            _host_copy(self.e0), _host_copy(opt.mu["e0"]),
+            _host_copy(opt.nu["e0"]), _host_copy(opt.count),
+            copy.deepcopy(self.rng.bit_generator.state), self.n_steps)
+
+    def restore(self, start: PretrainerState) -> None:
+        """Put the table, the moments, K1's count and the generator back
+        to ``start``, in place; the kept triples are dropped."""
+        opt = self.opt_state
+        with torch.no_grad():
+            self.e0.copy_(torch.from_numpy(start.e0))
+            opt.mu["e0"].copy_(torch.from_numpy(start.mu))
+            opt.nu["e0"].copy_(torch.from_numpy(start.nu))
+        self.opt_state = opt._replace(
+            count=torch.tensor(start.count, device=self.device))
+        self.rng.bit_generator.state = copy.deepcopy(start.rng)
+        self._batches.clear()
+        self.n_steps = start.n_steps
+
+    def operands(self) -> Optional[Tuple[RowOperand, RowOperand]]:
+        """(N's, N^T's) row operand on the device; None for the dense N."""
+        return getattr(self.prop, "operands", None)
+
+    def tables(self) -> LightGCNResult:
+        """The final (propagated) and initial tables, on the host."""
+        with torch.no_grad():
+            fu, fi = self.prop(self.e0)
+        return LightGCNResult(_host_copy(fu), _host_copy(fi),
+                              _host_copy(self.e0[:self.n_user]),
+                              _host_copy(self.e0[self.n_user:]))
+
+
 def pretrain(train_csr: sp.spmatrix, test_csr: sp.spmatrix,
              n_layers: int = 3, latent_dim: int = 64, epochs: int = 30,
              batch_size: int = 1024, lr: float = 0.005, decay: float = 1e-4,
@@ -290,6 +446,7 @@ def pretrain(train_csr: sp.spmatrix, test_csr: sp.spmatrix,
     """The reference pretrainer's loop: Adam and BPR, then per epoch the
     Recall/Precision/NDCG/MAP@k evaluation; returns the four tables of
     the epoch with the best NDCG (the reference saves them as .pt files).
+    Each epoch is ``steps_per_epoch`` steps of one ``BPRPretrainer``.
 
     ``sparse``: ``True`` propagates on the block-sparse N, ``"hybrid"`` on
     the tile + COO remainder format, ``False`` on the dense N; ``None``
@@ -306,16 +463,9 @@ def pretrain(train_csr: sp.spmatrix, test_csr: sp.spmatrix,
     """
     from gdmcf_torch.train.trainer import matmul_precision
 
-    if sparse not in (None, True, False, "hybrid"):
-        # any other truthy value would fall through to the block-sparse
-        # path: a misspelt format name fails instead
-        raise ValueError(f"sparse={sparse!r}: expected None, True, False, "
-                         "or 'hybrid'")
     dev = resolve_device(device)
     n_user, n_item = train_csr.shape
     dense_bytes = n_user * n_item * 4
-    if sparse is None:
-        sparse = dense_bytes > _DENSE_LIMIT_BYTES
     if evaluate and dense_bytes > _DENSE_LIMIT_BYTES:
         warnings.warn(
             f"pretrain: disabling the dense ranking eval at {n_user} x "
@@ -323,23 +473,11 @@ def pretrain(train_csr: sp.spmatrix, test_csr: sp.spmatrix,
             f"{dense_bytes / 2**30:.1f} GiB); returning final (not "
             "best-NDCG) embeddings", stacklevel=2)
         evaluate = False
-    prop = propagator(train_csr, n_layers, sparse, block_size, block_rows,
-                      dev)
-    shape = (n_user + n_item, latent_dim)
-    if init_table is None:
-        e0 = initial_table(shape[0], latent_dim, seed, dev)
-    else:
-        if tuple(np.shape(init_table)) != shape:
-            raise ValueError(f"init_table shape {np.shape(init_table)} != "
-                             f"{shape}")
-        e0 = torch.tensor(np.asarray(init_table, np.float32), device=dev)
-    e0.requires_grad_(True)
-    opt_state = fused_adamw_init({"e0": e0}, torch.float32)
-    rng = np.random.default_rng(seed)
+    pt = BPRPretrainer(train_csr, n_layers, latent_dim, batch_size, lr,
+                       decay, seed, sparse, block_size, block_rows, dev,
+                       init_table, keep_batches=0)
     if steps_per_epoch is None:
         steps_per_epoch = max(int(train_csr.nnz) // batch_size, 1)
-    # BPR consumes membership, so count-valued cells binarize here
-    ncsr = NativeCSR.from_scipy(train_csr, strict=False)
     if evaluate:
         train_mask = torch.from_numpy(
             train_csr.astype(np.float32).toarray() > 0).to(dev)
@@ -349,27 +487,13 @@ def pretrain(train_csr: sp.spmatrix, test_csr: sp.spmatrix,
     best_ndcg, best = -1.0, None
     with matmul_precision(tf32=False):
         for epoch in range(epochs):
-            losses = []
-            for _ in range(steps_per_epoch):
-                users = _choose_users(rng, n_user, batch_size)
-                pos, neg = ncsr.sample_bpr(users, int(rng.integers(2 ** 62)))
-                batch = torch.from_numpy(np.stack([users, pos, neg]).astype(
-                    np.int64))
-                if dev.type == "cuda":
-                    # a copy from pageable memory would wait for the
-                    # stream: pinned and non-blocking, the host samples
-                    # the next batch while the device runs this step
-                    batch = batch.pin_memory().to(dev, non_blocking=True)
-                opt_state, loss = bpr_step(e0, opt_state, prop, batch,
-                                           n_user, lr, decay)
-                # the losses stay on the device: one fetch per epoch
-                losses.append(loss)
-            total = float(torch.stack(losses).sum())
+            # the losses stay on the device: one fetch per epoch
+            total = pt.loss_total(pt.steps(steps_per_epoch))
             if not evaluate:
                 log(f"epoch {epoch}: loss {total / steps_per_epoch:.4f}")
                 continue
             with torch.no_grad():
-                fu, fi = prop(e0)
+                fu, fi = pt.prop(pt.e0)
                 scores = (fu @ fi.T).masked_fill_(train_mask, float("-inf"))
                 _, pred = chunked_topk(scores, k)
             # the reference pretrainer's protocol: natural-log NDCG, MAP@K,
@@ -382,14 +506,10 @@ def pretrain(train_csr: sp.spmatrix, test_csr: sp.spmatrix,
             if ndcg > best_ndcg:
                 best_ndcg = ndcg
                 best = LightGCNResult(_host_copy(fu), _host_copy(fi),
-                                      _host_copy(e0[:n_user]),
-                                      _host_copy(e0[n_user:]))
+                                      _host_copy(pt.e0[:n_user]),
+                                      _host_copy(pt.e0[n_user:]))
         if best is None:   # evaluate=False: the final tables
-            with torch.no_grad():
-                fu, fi = prop(e0)
-            best = LightGCNResult(_host_copy(fu), _host_copy(fi),
-                                  _host_copy(e0[:n_user]),
-                                  _host_copy(e0[n_user:]))
+            best = pt.tables()
     return best
 
 
