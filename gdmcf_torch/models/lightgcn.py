@@ -12,7 +12,9 @@ direction, one more launch).
 
 ``pretrain`` is the reference pretrainer's recipe (BPR with L2 on the
 layer-0 rows, Adam, ranking evaluation with natural-log NDCG), its steps
-run by ``BPRPretrainer`` (which a caller can also step alone), with the
+run by ``BPRPretrainer`` (which a caller can also step alone; each step,
+``bpr_step``, takes the table's gradient as the propagation of the
+batch's row gradients, not by autograd over the tables), with the
 JAX package's draws: one ``np.random.default_rng(seed)`` picks each batch's
 users and then the seed of ``NativeCSR.sample_bpr``, so at equal initial
 tables the port trains on the JAX package's triples. The Adam update is the
@@ -268,18 +270,42 @@ def bpr_step(e0: torch.Tensor, opt_state: FusedAdamWState, prop: Propagator,
              batch: torch.Tensor, n_user: int, lr: float, decay: float
              ) -> Tuple[FusedAdamWState, torch.Tensor]:
     """One BPR step in place on the leaf ``e0``: propagate, BPR loss plus
-    ``decay`` times the L2 term on the batch's layer-0 rows, backward, and
-    the Adam update (one AdamW kernel launch on CUDA). ``batch``: [3, B]
-    int64 (users, positive and negative items) on e0's device. Returns
-    the state and the loss, left on the device."""
+    ``decay`` times the L2 term on the batch's layer-0 rows, the gradient,
+    and the Adam update (one AdamW kernel launch on CUDA). ``batch``:
+    [3, B] int64 (users, positive and negative items) on e0's device.
+    Returns the state and the loss, left on the device.
+
+    Autograd runs over the batch's rows alone. The propagation is
+    ``final = P e0`` with P the mean of the powers 0..K of the symmetric
+    A = [[0, N], [N^T, 0]], so P is symmetric and the table's gradient is
+    ``P s``: the same propagation run on s, the loss's gradient at the
+    final tables (zero outside the batch's rows), plus the L2 term's at
+    the batch's layer-0 rows. No table-sized gradient of a slice, a gather
+    or the layer mean is formed."""
     users, pos, neg = batch
-    fu, fi = prop(e0)
-    loss, reg = bpr_loss(fu[users], fi[pos], fi[neg], e0[users],
-                         e0[n_user + pos], e0[n_user + neg], users.shape[0])
+    rows = (users, n_user + pos, n_user + neg)
+    with torch.no_grad():
+        fu, fi = prop(e0)
+        leaves = [t.requires_grad_() for t in (
+            fu[users], fi[pos], fi[neg], *(e0[r] for r in rows))]
+    loss, reg = bpr_loss(*leaves, users.shape[0])
     total = loss + decay * reg
-    (grad,) = torch.autograd.grad(total, e0)
-    opt_state = fused_adamw_apply({"e0": e0}, {"e0": grad.contiguous()},
-                                  opt_state, lr=lr)
+    grads = torch.autograd.grad(total, leaves)
+    # one accumulating put a gather, as autograd's backward of each gather
+    # takes: a row in the batch twice (a positive that is also another
+    # triple's negative) sums its gradients in one order on every run, by
+    # a sort on CUDA (index_add_'s float atomics would not), and serially
+    # on the CPU up to 32768 elements a put (above, the CPU adds by float
+    # atomics across threads, so one put of all three would not)
+    seed = torch.zeros_like(e0)
+    for r, g in zip(rows, grads[:3]):
+        seed.index_put_((r,), g, accumulate=True)
+    with span("gdmcf.bpr.grad"), torch.no_grad():
+        grad = torch.cat(prop(seed))
+        for r, g in zip(rows, grads[3:]):
+            grad.index_put_((r,), g, accumulate=True)
+    opt_state = fused_adamw_apply({"e0": e0}, {"e0": grad}, opt_state,
+                                  lr=lr)
     return opt_state, total.detach()
 
 
@@ -318,7 +344,9 @@ class BPRPretrainer:
     (at most ``keep_batches`` are kept). Spans (``utils.profiling.span``,
     off unless a profiler records): ``gdmcf.bpr.sample`` (the users and
     ``sample_bpr``), ``gdmcf.bpr.feed`` (the stack, pin and copy),
-    ``gdmcf.bpr.step`` (``bpr_step``'s dispatch), ``gdmcf.bpr.loss_fetch``.
+    ``gdmcf.bpr.step`` (``bpr_step``'s dispatch), within it
+    ``gdmcf.bpr.grad`` (the propagation of the rows' gradients),
+    ``gdmcf.bpr.loss_fetch``.
     ``n_steps`` counts the steps trained on since construction or the
     restored start; ``operands()`` gives the row operands of N and N^T
     the products run on (None for the dense N).

@@ -1,8 +1,10 @@
 """``models.lightgcn.BPRPretrainer``, the stepping pretrainer that
 ``pretrain`` runs, on the CPU at a tiny size: its steps are ``pretrain``'s
 bit for bit, a saved start put back repeats the same steps bit for bit,
-the triples it reports are those it trained on, and its ``gdmcf.bpr.*``
-spans are silent without a profiler and counted with one.
+the triples it reports are those it trained on, a step's gradient (the
+propagation of the batch's row gradients) is autograd's through the whole
+propagation, and its ``gdmcf.bpr.*`` spans are silent without a profiler
+and counted with one.
 """
 
 import numpy as np
@@ -22,7 +24,7 @@ KW = dict(n_layers=3, latent_dim=8, batch_size=16, lr=1e-3, decay=1e-4,
           seed=5, block_size=16, device="cpu")
 FORMATS = [False, True, "hybrid"]
 SPANS = ("gdmcf.bpr.sample", "gdmcf.bpr.feed", "gdmcf.bpr.step",
-         "gdmcf.bpr.loss_fetch")
+         "gdmcf.bpr.grad", "gdmcf.bpr.loss_fetch")
 
 
 def graph(seed=3):
@@ -107,13 +109,79 @@ def test_the_spans_are_silent_without_a_profiler_and_counted_with_one():
     totals = P.span_totals()
     assert {k: v[0] for k, v in totals.items()} == {
         "gdmcf.bpr.sample": 3, "gdmcf.bpr.feed": 3, "gdmcf.bpr.step": 3,
-        "gdmcf.bpr.loss_fetch": 1}
+        "gdmcf.bpr.grad": 3, "gdmcf.bpr.loss_fetch": 1}
     names = [e.name() for e in prof.profiler.kineto_results.events()
              if e.name().startswith("gdmcf.bpr.")]
     assert sorted(set(names)) == sorted(SPANS)
     # the spans change nothing the steps compute
     assert torch.equal(on, off)
     P.clear_span_totals()
+
+
+def _autograd_step(e0, prop, batch, decay):
+    """The step's loss and gradient by autograd through the whole
+    propagation, as the step took them before it propagated the rows'
+    gradients."""
+    users, pos, neg = batch
+    e = e0.detach().clone().requires_grad_(True)
+    fu, fi = prop(e)
+    loss, reg = TG.bpr_loss(fu[users], fi[pos], fi[neg], e[users],
+                            e[N_USER + pos], e[N_USER + neg], users.shape[0])
+    total = loss + decay * reg
+    (grad,) = torch.autograd.grad(total, e)
+    return total.detach(), grad
+
+
+@pytest.mark.parametrize("sparse", FORMATS)
+def test_the_steps_gradient_is_autograds_through_the_propagation(
+        sparse, monkeypatch):
+    train = graph().tolil()
+    train[0, :] = 0        # user 0 has an empty row
+    train = train.tocsr()
+    train.eliminate_zeros()
+    prop = TG.propagator(train, 3, sparse, block_size=16, device="cpu")
+    # user 0 twice; item 2 a positive three times and a negative once,
+    # item 1 a negative twice, item 4 a positive and a negative
+    batch = torch.tensor([
+        [0, 0, 3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 23, 25, 27, 39],
+        [1, 2, 2, 4, 6, 2, 8, 10, 12, 14, 16, 18, 20, 22, 24, 29],
+        [2, 3, 5, 1, 1, 6, 9, 11, 13, 15, 17, 19, 21, 23, 25, 4]])
+    lr, decay = 1e-3, 1e-2
+    e0 = TG.initial_table(N_USER + N_ITEM, 8, 5, "cpu")
+    want_loss, want_grad = _autograd_step(e0, prop, batch, decay)
+    want = e0.clone()
+    TG.fused_adamw_apply({"e0": want}, {"e0": want_grad},
+                         TG.fused_adamw_init({"e0": want}, torch.float32),
+                         lr=lr)
+
+    seen, inner = {}, TG.fused_adamw_apply
+
+    def spy(params, grads, state, **kw):
+        seen.update(grads)
+        return inner(params, grads, state, **kw)
+
+    monkeypatch.setattr(TG, "fused_adamw_apply", spy)
+    e0.requires_grad_(True)
+    state = TG.fused_adamw_init({"e0": e0}, torch.float32)
+    state, loss = TG.bpr_step(e0, state, prop, batch, N_USER, lr, decay)
+    assert torch.equal(loss, want_loss)
+    assert seen["e0"].is_contiguous()
+    torch.testing.assert_close(seen["e0"], want_grad, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(e0.detach(), want, rtol=1e-5, atol=1e-7)
+    assert int(state.count) == 1
+
+
+@pytest.mark.parametrize("sparse", FORMATS)
+def test_the_propagator_is_self_adjoint(sparse):
+    """<P a, b> = <a, P b>: what lets the step take the table's gradient
+    as the propagation of the rows' gradients."""
+    prop = TG.propagator(graph(), 3, sparse, block_size=16, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    a, b = (torch.randn(N_USER + N_ITEM, 8, generator=gen)
+            for _ in range(2))
+    pa, pb = torch.cat(prop(a)).double(), torch.cat(prop(b)).double()
+    lhs, rhs = float((pa * b.double()).sum()), float((a.double() * pb).sum())
+    assert lhs == pytest.approx(rhs, rel=1e-5)
 
 
 def test_a_misspelt_operand_format_is_refused():
