@@ -78,7 +78,8 @@ Phases (any failure exits non-zero):
      (golden geometry, 5 epochs), checked for metrics.jsonl and the
      "End. Best Epoch" line;
  11. gradients through the SpMM kernel: d/d e0 of (fu w_u).sum() +
-     (fi w_i).sum() through propagate_hybrid, 3 layers, on the phase-2
+     (fi w_i).sum() through propagate_rows on the hybrid's row operands,
+     3 layers, on the phase-2
      graph's pattern normalized as LightGCN does, D 64 and 50, against the
      same loss through both plain versions (deterministic index_add_) and
      dense autograd through N, within TOL; two backward passes bitwise
@@ -297,7 +298,8 @@ Phases (any failure exits non-zero):
      (c) LightGCN pretraining at benchmarks/lightgcn_scale_pretrain.py's
      defaults (1M x 200k, degree 10, alpha 1.6, degree-sorted, batch
      65,536, D 64, 2 layers, 15 steps an epoch) for 2 epochs on the
-     block-CSR operand and on the hybrid one: finite losses equal within
+     operand of sparse=True and of sparse="hybrid" (both N's row operands
+     over the 8 x 128 grid, no tiles built): finite losses equal within
      rtol 1e-5, spmm_rows and K1 launches counted, host builds timed, then
      spmm_rows at that operand against its plain version (phase 2's
      tolerance), its nonzero-only bound and torch.sparse.mm;
@@ -789,17 +791,17 @@ def serve_lightgcn(args, root, card, torch, errors):
         "start-up must launch the kernel twice per direction"
 
     # start-up's host build of N, in parts (build_recommender runs the
-    # normalization and to_hybrid with these defaults)
+    # normalization and the row operands over the 8 x 128 grid); then the
+    # tile + COO format that the plain reference below takes, which no run
+    # path builds
     t0 = time.perf_counter()
     n, _ = lg._normalized_sparse_n(csr, 1e-9, False)
     norm_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    h = S.to_hybrid(n)
-    hybrid_s = time.perf_counter() - t0
     coo = n.tocoo()
     t0 = time.perf_counter()
-    padded = sp.csr_matrix((coo.data, (coo.row, coo.col)),
-                           shape=h.tiles.shape)
+    padded = sp.csr_matrix((coo.data.astype(np.float32), (coo.row, coo.col)),
+                           shape=(-(-N_USER // 8) * 8,
+                                  -(-N_ITEM // 128) * 128))
     csr_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     S.row_operand(padded, False)
@@ -807,12 +809,16 @@ def serve_lightgcn(args, root, card, torch, errors):
     t0 = time.perf_counter()
     S.row_operand(padded.T.tocsr(), True)
     t_s = time.perf_counter() - t0
-    log(f"host build of N: normalization {norm_s:.3f} s, to_hybrid "
-        f"{hybrid_s:.3f} s = padded CSR {csr_s:.3f} s + forward operand "
-        f"{fwd_s:.3f} s + transpose operand {t_s:.3f} s + tiles and the "
-        f"rest {hybrid_s - csr_s - fwd_s - t_s:.3f} s; the rest of "
-        f"build_recommender (model init, propagation, warm-up) "
-        f"{build_s - norm_s - hybrid_s:.3f} s")
+    t0 = time.perf_counter()
+    h = S.to_hybrid(n)
+    hybrid_s = time.perf_counter() - t0
+    log(f"host build of N: normalization {norm_s:.3f} s, padded CSR "
+        f"{csr_s:.3f} s, forward operand {fwd_s:.3f} s, transpose operand "
+        f"{t_s:.3f} s; the rest of build_recommender (model init, "
+        f"propagation, warm-up) "
+        f"{build_s - norm_s - csr_s - fwd_s - t_s:.3f} s; the plain "
+        f"reference's tile + COO format (to_hybrid, on no run path) "
+        f"{hybrid_s:.3f} s")
     del coo, padded
 
     # the propagated tables against the plain tile + COO propagation
@@ -844,7 +850,8 @@ def serve_lightgcn(args, root, card, torch, errors):
         f"{int((h.t_rows.row_ptr[1:] - h.t_rows.row_ptr[:-1]).max())}")
 
     # 4. timings: operand (a) the whole hybrid N, (b) its tiles alone
-    prop_ms = cuda_ms(lambda: lg.propagate_hybrid(raw_u, raw_i, h, 2),
+    prop_ms = cuda_ms(lambda: lg.propagate_rows(raw_u, raw_i, h.fwd_rows,
+                                                h.t_rows, 2),
                       iters=5, warmup=1)
     log(f"propagation (2 layers x 2 directions, one launch per product): "
         f"{prop_ms:.3f} ms [{card}]")
@@ -1609,7 +1616,8 @@ def gradient_phase(torch):
                                               (n_user, d), (n_item, d)))
         S.reset_launch_counts()
         e = e0.clone().requires_grad_(True)
-        fu, fi = lg.propagate_hybrid(e[:n_user], e[n_user:], h, 3)
+        fu, fi = lg.propagate_rows(e[:n_user], e[n_user:], h.fwd_rows,
+                                   h.t_rows, 3)
         torch.cuda.synchronize()
         fwd = dict(S.LAUNCHES)
         (g,) = torch.autograd.grad((fu * w_u).sum() + (fi * w_i).sum(), e)
@@ -1619,8 +1627,8 @@ def gradient_phase(torch):
         assert both == {"spmm_rows_fwd": 6, "spmm_rows_t": 6}, both
         for k in launches:
             launches[k] += both[k]
-        again = grad_of(torch, lambda u, i: lg.propagate_hybrid(u, i, h, 3),
-                        e0, w_u, w_i, n_user)
+        again = grad_of(torch, lambda u, i: lg.propagate_rows(
+            u, i, h.fwd_rows, h.t_rows, 3), e0, w_u, w_i, n_user)
         torch.cuda.synchronize()
         assert torch.equal(g, again), "two backward passes differ"
         with deterministic(torch):
@@ -1641,7 +1649,7 @@ def gradient_phase(torch):
             torch.testing.assert_close(g, want, **TOL)
             shares.append(f"{label} {tol_share(g, want):.3f}")
             worst = max(worst, (g - want).abs().max().item())
-        log(f"gradient d={d}: 3 layers of propagate_hybrid over "
+        log(f"gradient d={d}: 3 layers of propagate_rows over "
             f"{h.fwd_rows.nnz} nonzeros ({h.rem_vals.numel()} in the COO "
             f"remainder); launches forward {fwd}, forward and backward "
             f"{both}; two backward passes bitwise equal; share of the "
@@ -6136,8 +6144,9 @@ def scale_mesh(card, torch, pool):
 
 def scale_pretrain(root, card, torch):
     """Phase 24 (c): LightGCN pretraining at 1M x 200k on the degree-sorted
-    power-law graph, SCALE_C_EPOCHS epochs on the block-CSR operand and on
-    the hybrid one, the host builds timed; then spmm_rows at this operand
+    power-law graph, SCALE_C_EPOCHS epochs with sparse=True and with
+    sparse="hybrid" (both the row operands over the 8 x 128 grid), the host
+    builds timed; then spmm_rows at this operand
     against its plain version, its bound and torch.sparse.mm. Returns the
     readings and the kernel entries' additions."""
     from gdmcf_torch.data.native import NativeCSR
@@ -6173,15 +6182,14 @@ def scale_pretrain(root, card, torch):
             return r
         return run
 
-    originals = (lg._normalized_sparse_n, lg.to_block_sparse, lg.to_hybrid,
-                 S.row_operands, S.BlockSparse._row_operands, lg.bpr_step,
-                 NativeCSR.sample_bpr)
+    originals = (lg._normalized_sparse_n, lg.normalized_row_operands,
+                 lg.bpr_step, NativeCSR.sample_bpr)
     step_ms, step_losses = [], []
 
     def bpr_step(*a, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        st, loss = originals[5](*a, **kw)
+        st, loss = originals[2](*a, **kw)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
         step_losses.append(loss)
@@ -6190,14 +6198,11 @@ def scale_pretrain(root, card, torch):
     runs = {}
     try:
         lg._normalized_sparse_n = timed("normalisation", originals[0])
-        lg.to_block_sparse = timed("tiles", originals[1])
-        lg.to_hybrid = timed("tiles", originals[2])
-        # the hybrid builds its row operands inside to_hybrid, the block
-        # format from its tiles at first use (both through row_operands)
-        S.row_operands = timed("csr operands", originals[3])
-        S.BlockSparse._row_operands = timed("row operands", originals[4])
+        # what both forms run: the normalisation, then the row
+        # operands over the padded grid (no tiles)
+        lg.normalized_row_operands = timed("operands", originals[1])
         lg.bpr_step = bpr_step
-        NativeCSR.sample_bpr = timed("sampling", originals[6])
+        NativeCSR.sample_bpr = timed("sampling", originals[3])
         for fmt, sparse in (("block", True), ("hybrid", "hybrid")):
             spent.clear()
             step_ms.clear()
@@ -6223,15 +6228,12 @@ def scale_pretrain(root, card, torch):
                 step_ms_p50=float(np.percentile(step_ms[steps:], 50)),
                 sample_ms=spent.get("sampling", 0.0) / n_steps * 1e3,
                 builds={"normalisation": spent["normalisation"],
-                        "tiles": spent["tiles"],
-                        "row operands": spent.get("row operands", 0.0)},
+                        "row operands": (spent["operands"]
+                                         - spent["normalisation"])},
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                 lines=lines)
             r = runs[fmt]
-            if fmt == "hybrid":   # its row operands are part of to_hybrid
-                r["builds"]["row operands"] = spent["csr operands"]
-                r["builds"]["tiles"] -= spent["csr operands"]
-                hybrid = kept["tiles"]
+            operands = kept["operands"]
             # forward: a product each way a layer; backward: the same again
             per_dir = 2 * SCALE_C_LAYERS * n_steps + SCALE_C_LAYERS
             want = {"spmm_rows_fwd": per_dir, "spmm_rows_t": per_dir}
@@ -6240,8 +6242,9 @@ def scale_pretrain(root, card, torch):
             assert np.isfinite(r["losses"]).all(), (fmt, r["losses"])
             assert np.isfinite(res.final_user).all() and \
                 np.isfinite(res.final_item).all(), fmt
-            log(f"scale (c) pretrain on the {fmt} operand (br "
-                f"{SCALE_C_BR}, bc {SCALE_C_BC}), {SCALE_C_EPOCHS} epochs of "
+            log(f"scale (c) pretrain with sparse={sparse!r} (row operands "
+                f"over br {SCALE_C_BR} x bc {SCALE_C_BC}), {SCALE_C_EPOCHS} "
+                f"epochs of "
                 f"{steps} BPR steps of {SCALE_C_BATCH}, {SCALE_C_LAYERS} "
                 f"layers, D {SCALE_C_DIM}: {call_s:.2f} s in all; host "
                 f"builds {({k: round(v, 3) for k, v in r['builds'].items()})}"
@@ -6252,8 +6255,7 @@ def scale_pretrain(root, card, torch):
                 f"tables) and fused_adamw {r['adamw']}; peak "
                 f"{r['peak_gib']:.2f} GiB; {lines} [{card}]")
     finally:
-        (lg._normalized_sparse_n, lg.to_block_sparse, lg.to_hybrid,
-         S.row_operands, S.BlockSparse._row_operands, lg.bpr_step,
+        (lg._normalized_sparse_n, lg.normalized_row_operands, lg.bpr_step,
          NativeCSR.sample_bpr) = originals
     lb, lh = np.asarray(runs["block"]["losses"]), np.asarray(
         runs["hybrid"]["losses"])
@@ -6263,11 +6265,10 @@ def scale_pretrain(root, card, torch):
         f"{lh[0]:.6f}, last {lh[-1]:.6f}")
     assert gap <= SCALE_LOSS_RTOL, (lb.tolist(), lh.tolist())
 
-    # spmm_rows at this operand: the hybrid's row operands
+    # spmm_rows at this operand: the hybrid run's row operands
     entries = {}
     gen = torch.Generator("cuda").manual_seed(24)
-    for name, op in (("spmm_rows_fwd", hybrid.fwd_rows),
-                     ("spmm_rows_t", hybrid.t_rows)):
+    for name, op in zip(("spmm_rows_fwd", "spmm_rows_t"), operands):
         op = op.to("cuda")
         n_x = SCALE_C_ITEMS if name == "spmm_rows_fwd" else SCALE_C_USERS
         x = torch.randn(n_x, SCALE_C_DIM, device="cuda", generator=gen)
@@ -6287,8 +6288,8 @@ def scale_pretrain(root, card, torch):
         bound_bytes = nnz_bytes(op, SCALE_C_DIM) / HBM_BYTES_PER_S * 1e3
         bound_ops = 2 * op.nnz * SCALE_C_DIM / F32_FLOP_PER_S * 1e3
         entries[name] = {
-            "operand": f"{SCALE_C_USERS} x {SCALE_C_ITEMS} hybrid N, "
-                       f"{op.nnz} nonzeros",
+            "operand": f"{SCALE_C_USERS} x {SCALE_C_ITEMS} N's row "
+                       f"operand, {op.nnz} nonzeros",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
@@ -6306,7 +6307,7 @@ def scale_pretrain(root, card, torch):
         del op, x, y, y2, want, lib
     gc.collect()
     torch.cuda.empty_cache()
-    del hybrid, kept
+    del operands, kept
     return dict(runs=runs, graph_s=draw_s + sort_s, kernels=entries)
 
 

@@ -223,8 +223,8 @@ class DNNlightGCN(DNN):
     buffers, and the filter is ``(e_user[index] @ e_item.T) > 0``.
 
     ``norm_adj``: dense normalized N (a [n_user, n_item] tensor);
-    ``sparse_adj``: a BlockSparse or HybridSparse N, propagated on its row
-    operands alone (the SpMM kernel on CUDA). Neither: the raw init tables are used.
+    ``sparse_adj``: (N's, N^T's) row operands, propagated on the SpMM
+    kernel on CUDA. Neither: the raw init tables are used.
     """
 
     needs_index = True
@@ -244,8 +244,8 @@ class DNNlightGCN(DNN):
             from gdmcf_torch.models.lightgcn import propagate_rows
             dev = e_user.device
             e_user, e_item = propagate_rows(
-                e_user, e_item, sparse_adj.fwd_rows.to(dev),
-                sparse_adj.t_rows.to(dev), lgn_layers)
+                e_user, e_item, *(op.to(dev) for op in sparse_adj),
+                lgn_layers)
         elif norm_adj is not None:
             from gdmcf_torch.models.lightgcn import propagate
             e_user, e_item = propagate(e_user, e_item,

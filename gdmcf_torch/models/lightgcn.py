@@ -3,12 +3,13 @@
 Port of the JAX package's ``models/lightgcn.py``: with R the user x item
 interactions, N = D_u^{-1/2} R D_i^{-1/2}, one layer is
 ``u' = N @ e_item, i' = N^T @ e_user``, and the final tables are the mean
-over layers 0..K. The sparse forms run on ``ops/spmm`` (the CUDA kernel for
-CUDA tensors, one launch per product): each operand carries a row operand
-per direction, the CSR of N and that of N^T, so both directions are the
-same row gather, and each product is differentiable through
-``ops.spmm.spmm_op`` (its backward pass is the product in the other
-direction, one more launch).
+over layers 0..K. ``normalized_operand`` gives N to the propagator, the
+pretrainer and the lightGCN backbone: dense, or (N's, N^T's) row operands,
+which run on ``ops/spmm`` (the CUDA kernel for CUDA tensors, one launch a
+product, differentiable through ``ops.spmm.spmm_op``, whose backward pass
+is one launch in the other direction). No run path builds a tile: only
+the mirrors ``normalized_bipartite_sparse`` / ``_hybrid`` build the JAX
+tile formats, for the tests and ``chip_smoke.py``.
 
 ``pretrain`` is the reference pretrainer's recipe (BPR with L2 on the
 layer-0 rows, Adam, ranking evaluation with natural-log NDCG), its steps
@@ -41,9 +42,9 @@ from gdmcf_torch.models.layers import xavier_uniform
 from gdmcf_torch.ops.fused_adamw import (FusedAdamWState, fused_adamw_apply,
                                          fused_adamw_init)
 from gdmcf_torch.ops.metrics import lightgcn_topn_metrics
-from gdmcf_torch.ops.spmm import (BlockSparse, HybridSparse, RowOperand,
-                                  degree_sort_permutation, spmm_op,
-                                  to_block_sparse, to_hybrid)
+from gdmcf_torch.ops.spmm import (RowOperand, degree_sort_permutation,
+                                  row_operands, spmm_op, to_block_sparse,
+                                  to_hybrid)
 from gdmcf_torch.ops.topk import chunked_topk
 from gdmcf_torch.utils.profiling import span
 
@@ -84,12 +85,43 @@ def _normalized_sparse_n(train_csr: sp.spmatrix, eps: float,
     return n, perms
 
 
+def normalized_row_operands(train_csr: sp.spmatrix, br: int, bc: int,
+                            eps: float = 1e-9
+                            ) -> Tuple[RowOperand, RowOperand]:
+    """(N's, N^T's) row operands on the CPU, of N's float32 CSR padded to
+    multiples of ``br`` rows and ``bc`` columns: the mirrors' ``fwd_rows``
+    / ``t_rows`` at that grid, tensor for tensor, without tiles."""
+    coo = _normalized_sparse_n(train_csr, eps, False)[0].tocoo()
+    shape = (-(-coo.shape[0] // br) * br, -(-coo.shape[1] // bc) * bc)
+    return row_operands(sp.csr_matrix(
+        (coo.data.astype(np.float32), (coo.row, coo.col)), shape=shape))
+
+
+def normalized_operand(train_csr: sp.spmatrix, sparse,
+                       block_size: int = 128,
+                       block_rows: Optional[int] = None):
+    """N on the CPU: dense ([n_user, n_item] float32) for ``sparse=False``,
+    else ``normalized_row_operands`` over ``block_rows or 8`` (``"hybrid"``)
+    or ``block_rows or block_size`` (``True``) rows x ``block_size``.
+    ``None`` is ``True`` once the dense N would pass ``_DENSE_LIMIT_BYTES``."""
+    if sparse not in (None, True, False, "hybrid"):   # a misspelt name
+        raise ValueError(f"sparse={sparse!r}: expected None, True, False, "
+                         "or 'hybrid'")
+    if sparse is None:
+        n_user, n_item = train_csr.shape
+        sparse = n_user * n_item * 4 > _DENSE_LIMIT_BYTES
+    if not sparse:
+        return torch.from_numpy(normalized_bipartite_blocks(train_csr))
+    br = block_rows or (8 if sparse == "hybrid" else block_size)
+    return normalized_row_operands(train_csr, br, block_size)
+
+
 def normalized_bipartite_sparse(train_csr: sp.spmatrix, br: int = 128,
                                 bc: int = 128, eps: float = 1e-9,
                                 max_bytes: int = 8 << 30,
                                 degree_sort: bool = False):
-    """N as ONE BlockSparse (its ``t_rows`` serve N^T); with
-    ``degree_sort`` also returns (row_perm, col_perm)."""
+    """N as ONE BlockSparse (its ``t_rows`` serve N^T), the JAX format's
+    mirror; with ``degree_sort`` also returns (row_perm, col_perm)."""
     n, perms = _normalized_sparse_n(train_csr, eps, degree_sort)
     n_bs = to_block_sparse(n, br, bc, max_bytes)
     return (n_bs, perms) if degree_sort else n_bs
@@ -100,7 +132,7 @@ def normalized_bipartite_hybrid(train_csr: sp.spmatrix, br: int = 8,
                                 eps: float = 1e-9, max_bytes: int = 8 << 30,
                                 degree_sort: bool = False):
     """N as a HybridSparse (tiles + COO remainder, and the row operands
-    over all of its nonzeros that the products run on)."""
+    over all of its nonzeros), the JAX format's mirror."""
     n, perms = _normalized_sparse_n(train_csr, eps, degree_sort)
     h = to_hybrid(n, br=br, bc=bc, min_fill=min_fill, max_bytes=max_bytes)
     return (h, perms) if degree_sort else h
@@ -128,26 +160,11 @@ def propagate(e_user: torch.Tensor, e_item: torch.Tensor,
 def propagate_rows(e_user: torch.Tensor, e_item: torch.Tensor,
                    fwd: RowOperand, t: RowOperand, n_layers: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``propagate`` on the row operands of N and N^T alone (either
-    format's ``fwd_rows`` and ``t_rows``), so the tiles need not be on the
-    device. Differentiable in both tables: each product's backward pass
-    is one product on the other operand."""
+    """``propagate`` on the row operands of N and N^T. Differentiable in
+    both tables: each product's backward pass is one product on the other
+    operand."""
     return _layers(e_user, e_item, n_layers, lambda i: spmm_op(fwd, t, i),
                    lambda u: spmm_op(t, fwd, u))
-
-
-def propagate_sparse(e_user: torch.Tensor, e_item: torch.Tensor,
-                     a: BlockSparse, n_layers: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``propagate`` on the block-sparse N (its tiles' nonzeros)."""
-    return propagate_rows(e_user, e_item, a.fwd_rows, a.t_rows, n_layers)
-
-
-def propagate_hybrid(e_user: torch.Tensor, e_item: torch.Tensor,
-                     h: HybridSparse, n_layers: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``propagate`` on the hybrid N: one launch per product on CUDA."""
-    return propagate_rows(e_user, e_item, h.fwd_rows, h.t_rows, n_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -226,27 +243,17 @@ def propagator(train_csr: sp.spmatrix, n_layers: int, sparse,
                block_size: int = 128, block_rows: Optional[int] = None,
                device=None) -> Propagator:
     """``prop(e0) -> (final_user, final_item)`` over the stacked table
-    ``e0 = [e_user; e_item]``, differentiable, on the operand ``sparse``
-    names: ``"hybrid"`` (tiles of ``block_rows or 8`` x ``block_size`` and
-    the COO remainder), ``True`` (tiles of ``block_rows or block_size`` x
-    ``block_size``) or ``False`` (the dense N). The sparse forms keep only
-    their two row operands on the device, (N's, N^T's) as
-    ``prop.operands``."""
+    ``e0 = [e_user; e_item]``, differentiable, on ``normalized_operand``'s
+    N (``sparse``, ``block_size`` and ``block_rows`` as there). The sparse
+    form's (N's, N^T's) row operands on the device are ``prop.operands``."""
     dev = resolve_device(device)
     n_user = train_csr.shape[0]
-    if sparse == "hybrid":
-        a = normalized_bipartite_hybrid(train_csr, br=block_rows or 8,
-                                        bc=block_size)
-    elif sparse:
-        a = normalized_bipartite_sparse(train_csr,
-                                        br=block_rows or block_size,
-                                        bc=block_size)
-    else:
-        n_mat = torch.from_numpy(normalized_bipartite_blocks(train_csr)).to(
-            dev)
+    a = normalized_operand(train_csr, sparse, block_size, block_rows)
+    if isinstance(a, torch.Tensor):
+        n_mat = a.to(dev)
         return lambda e0: propagate(e0[:n_user], e0[n_user:], n_mat,
                                     n_layers)
-    fwd, t = a.fwd_rows.to(dev), a.t_rows.to(dev)
+    fwd, t = (op.to(dev) for op in a)
 
     def prop(e0):
         return propagate_rows(e0[:n_user], e0[n_user:], fwd, t, n_layers)
@@ -332,10 +339,11 @@ class BPRPretrainer:
     a caller steps, puts back to a saved start and asks for its triples.
 
     Holds the table ``e0`` (a leaf updated in place), K1's state with
-    float32 moments, the propagator over ``sparse``'s operand, the
-    ``NativeCSR`` it samples from and the host generator
-    ``np.random.default_rng(seed)``, which draws each step's users
-    (``_choose_users``) and then the seed of ``sample_bpr``.
+    float32 moments, the propagator (``sparse``, ``block_size`` and
+    ``block_rows`` choose ``normalized_operand``'s dense or sparse N and
+    padded grid, and nothing more), the ``NativeCSR`` it samples from and
+    the host generator ``np.random.default_rng(seed)``, which draws each
+    step's users (``_choose_users``) and then the seed of ``sample_bpr``.
 
     ``steps(n)`` runs n steps and returns their losses, left on the
     device; ``loss_total`` fetches their sum. ``state()`` / ``restore``
@@ -359,15 +367,8 @@ class BPRPretrainer:
                  block_rows: Optional[int] = None, device=None,
                  init_table: Optional[np.ndarray] = None,
                  keep_batches: int = 8):
-        if sparse not in (None, True, False, "hybrid"):
-            # any other truthy value would fall through to the block-sparse
-            # path: a misspelt format name fails instead
-            raise ValueError(f"sparse={sparse!r}: expected None, True, "
-                             "False, or 'hybrid'")
         dev = self.device = resolve_device(device)
         self.n_user, self.n_item = train_csr.shape
-        if sparse is None:
-            sparse = self.n_user * self.n_item * 4 > _DENSE_LIMIT_BYTES
         self.prop = propagator(train_csr, n_layers, sparse, block_size,
                                block_rows, dev)
         shape = (self.n_user + self.n_item, latent_dim)
@@ -476,10 +477,10 @@ def pretrain(train_csr: sp.spmatrix, test_csr: sp.spmatrix,
     the epoch with the best NDCG (the reference saves them as .pt files).
     Each epoch is ``steps_per_epoch`` steps of one ``BPRPretrainer``.
 
-    ``sparse``: ``True`` propagates on the block-sparse N, ``"hybrid"`` on
-    the tile + COO remainder format, ``False`` on the dense N; ``None``
-    picks sparse once the dense [n_user, n_item] N would exceed
-    ``_DENSE_LIMIT_BYTES``. ``evaluate=False`` skips the evaluation, which
+    ``sparse``, ``block_size`` and ``block_rows`` choose
+    ``normalized_operand``'s dense or sparse N and padded grid, and nothing
+    more (``None``: sparse once the dense [n_user, n_item] N would exceed
+    ``_DENSE_LIMIT_BYTES``). ``evaluate=False`` skips the evaluation, which
     is turned off with a warning above that limit (the score matrix is as
     large), and returns the final tables. ``steps_per_epoch`` defaults to
     the reference's budget ``nnz // batch_size``.

@@ -21,9 +21,10 @@ _PLAIN = {"DNN": B.DNN, "DNNCat": B.DNNCat, "DNNCat2": B.DNNCat2,
 def build_model(cfg, n_user: int, n_item: int, train_csr=None, *,
                 generator: torch.Generator, device=None) -> torch.nn.Module:
     """``train_csr`` is the training interaction matrix; the lightGCN
-    backbone propagates its link-filter tables over it: dense normalized N
-    for moderate catalogs, the hybrid tile + COO operand once the dense N
-    would exceed ``_DENSE_LIMIT_BYTES``."""
+    backbone propagates its link-filter tables over it: the dense
+    normalized N for moderate catalogs, N's row operands over the 8 x 128
+    grid once the dense N would exceed the limit of
+    ``lightgcn.normalized_operand``."""
     b = cfg.backbone
     in_dims, out_dims = cfg.in_dims(n_item), cfg.out_dims(n_item)
     common = dict(generator=generator, device=device, norm=cfg.norm,
@@ -48,12 +49,10 @@ def build_model(cfg, n_user: int, n_item: int, train_csr=None, *,
         raise ValueError(f"not implemented backbone: {b}")
     norm_adj, sparse_adj = None, None
     if train_csr is not None:
-        from gdmcf_torch.models import lightgcn as _lg
+        from gdmcf_torch.models.lightgcn import normalized_operand
 
-        if n_user * n_item * 4 > _lg._DENSE_LIMIT_BYTES:
-            sparse_adj = _lg.normalized_bipartite_hybrid(train_csr)
-        else:
-            norm_adj = torch.from_numpy(
-                _lg.normalized_bipartite_blocks(train_csr))
+        a = normalized_operand(train_csr, None, block_size=128, block_rows=8)
+        dense = isinstance(a, torch.Tensor)
+        norm_adj, sparse_adj = (a, None) if dense else (None, a)
     return B.DNNlightGCN(in_dims, out_dims, cfg.emb_size, n_user, n_item,
                          norm_adj=norm_adj, sparse_adj=sparse_adj, **common)

@@ -8,13 +8,15 @@ existed for its DMA engine only, so the metadata here is flat and the tile
 array holds exactly the stored tiles. The tiles and ``spmm_reference`` /
 ``hybrid_spmm_reference`` keep the TPU's structure as references.
 
-What the products run on is a ``RowOperand`` per direction, built beside
-the tiles: a CSR over the padded output rows holding only the nonzeros (the
-transpose gets its own CSR of A^T), each row's range cut into segments of at
-most ``ROW_SEGMENT`` nonzeros, the kernel's unit of work. A
-``BlockSparse`` reads the operands of its tiles' nonzeros from the tiles at
-first use; a ``HybridSparse`` carries operands over all its nonzeros, tiles
-and COO remainder together, so a hybrid product is one launch.
+What the products run on is a ``RowOperand`` per direction
+(``row_operands``): a CSR over the padded output rows holding only the
+nonzeros (the transpose gets its own CSR of A^T), each row's range cut into
+segments of at most ``ROW_SEGMENT`` nonzeros, the kernel's unit of work.
+The run path builds these alone; the tile formats mirror the JAX ones for
+the tests and ``chip_smoke.py``, and outside this module only
+``models.lightgcn``'s ``normalized_bipartite_*`` build them. A
+``BlockSparse`` reads its tiles' operands at first use; a ``HybridSparse``
+holds operands over all its nonzeros, tiles and remainder.
 
 Which path runs is decided by the tensors' device alone: for CUDA tensors
 ``spmm_rows`` (and ``spmm``, ``hybrid_spmm``) launches the hand-written
@@ -486,8 +488,8 @@ class _SpmmOp(torch.autograd.Function):
 def spmm_op(op: RowOperand, op_opposite: RowOperand,
             x: torch.Tensor) -> torch.Tensor:
     """Differentiable ``y = op @ x``: ``op`` and ``op_opposite`` are the
-    two row operands of one matrix (``fwd_rows``/``t_rows`` of a
-    ``BlockSparse`` or ``HybridSparse``, either way round). The forward
+    two row operands of one matrix (``row_operands``' pair, either way
+    round). The forward
     pass is one ``spmm_rows``, the backward pass one ``spmm_rows`` on
     ``op_opposite``: on CUDA each launches the kernel or raises."""
     if op.transpose == op_opposite.transpose or op.device != op_opposite.device:

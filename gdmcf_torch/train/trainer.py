@@ -149,6 +149,24 @@ def _rank_device(device) -> torch.device:
     return dev
 
 
+def equal_shape_runs(items, k: int, key):
+    """The runs (lists) of consecutive ``items`` of equal ``key(item)``,
+    each at most ``k`` long: the JAX package's grouping of fused eval
+    batches, where a trailing partial batch trims a run. A full run is
+    yielded before the next item is taken."""
+    run = []
+    for item in items:
+        if run and key(item) != key(run[0]):
+            yield run
+            run = []
+        run.append(item)
+        if len(run) == k:
+            yield run
+            run = []
+    if run:
+        yield run
+
+
 class Trainer:
     def __init__(self, cfg, n_user: int, n_item: int, train_csr=None,
                  device=None):
@@ -784,9 +802,8 @@ class Trainer:
         ``random_seed + 12345`` unless given, is consumed in batch order.
         ``state`` is accepted for the JAX signature: the port's parameters
         are the model's own tensors. ``eval_batches_per_call`` K > 1 fuses
-        the equal-shape prefix of each window of K batches
-        (``_eval_group``), with the same draws in the same order as single
-        batches.
+        each of ``equal_shape_runs``' runs of batches (``_eval_group``),
+        with the same draws in the same order as single batches.
 
         Binary ground truth is summed on the device against a bit-packed
         cache: the rankings never leave the device and the sums come back
@@ -806,51 +823,39 @@ class Trainer:
         acc = MetricAccumulator(topn)
         all_idx, kept_users = [], []
 
-        def shape(c):   # (rows, mask, whether the mask is the rows)
+        def shape(i):   # (rows, mask, whether the mask is the rows)
+            c = cached[i]
             return c[1].shape, c[3].shape, c[3] is c[1]
 
-        def ranked():
-            """(batch number, its top-k ids) in batch order; a fused
-            group's ids are consumed before the next group runs. A group
-            is the equal-shape prefix of a window of K batches (the JAX
-            package's rule: a trailing partial batch trims the group, it
-            does not un-fuse the full ones)."""
-            i = 0
-            while i < len(cached):
-                group = cached[i:i + k]
-                n = 1
-                while n < len(group) and shape(group[n]) == shape(group[0]):
-                    n += 1
-                if n > 1:
-                    group = group[:n]
-                    same = group[0][3] is group[0][1]
-                    ids = self._eval_group(
-                        [c[1] for c in group], [c[2] for c in group],
-                        None if same else [c[3] for c in group], top_k,
-                        generator)
-                    for j in range(n):
-                        yield i + j, ids[j]
-                else:
-                    _, rows, uids, mask, sharded = cached[i]
-                    yield i, self.eval_step(
-                        rows, uids, mask, sampling_steps=cfg.sampling_steps,
-                        top_k=top_k, generator=generator,
-                        block=(self.row_block(rows.shape[0]) if sharded
-                               else None))
-                i += n
-
-        for i, idx in ranked():
-            start, rows, uids, mask, sharded = cached[i]
-            if use_reduce:
-                # a sharded entry holds this rank's rows: its rankings
-                # pair with the ground truth of its own users
-                if sharded or is_main_process():
-                    acc.add(gt_matrix[start:start + rows.shape[0]], idx)
-            elif gt_dev is not None:
-                acc.add_packed(gt_dev[i], idx, self.n_item)
-            else:   # count-valued ground truth: the host path
-                all_idx.append(idx.cpu().numpy())
-                kept_users.append(np.arange(start, start + rows.shape[0]))
+        # a fused group's ids are consumed before the next group runs
+        for run in equal_shape_runs(range(len(cached)), k, shape):
+            group = [cached[i] for i in run]
+            if len(run) == 1:
+                _, rows, uids, mask, sharded = group[0]
+                ids = [self.eval_step(
+                    rows, uids, mask, sampling_steps=cfg.sampling_steps,
+                    top_k=top_k, generator=generator,
+                    block=(self.row_block(rows.shape[0]) if sharded
+                           else None))]
+            else:
+                same = group[0][3] is group[0][1]
+                ids = self._eval_group(
+                    [c[1] for c in group], [c[2] for c in group],
+                    None if same else [c[3] for c in group], top_k,
+                    generator)
+            for i, idx in zip(run, ids):
+                start, rows, uids, mask, sharded = cached[i]
+                if use_reduce:
+                    # a sharded entry holds this rank's rows: its rankings
+                    # pair with the ground truth of its own users
+                    if sharded or is_main_process():
+                        acc.add(gt_matrix[start:start + rows.shape[0]], idx)
+                elif gt_dev is not None:
+                    acc.add_packed(gt_dev[i], idx, self.n_item)
+                else:   # count-valued ground truth: the host path
+                    all_idx.append(idx.cpu().numpy())
+                    kept_users.append(np.arange(start,
+                                                start + rows.shape[0]))
         if use_reduce:
             return self._reduce_metric_acc(acc)
         if gt_dev is not None:
@@ -940,10 +945,10 @@ class Trainer:
         the model input / the history mask (e.g. [train] or [train,
         valid]). On a mesh as ``evaluate``: each dp group gathers, packs
         and scores its block of a shardable batch.
-        ``eval_batches_per_call`` K > 1 fuses as ``evaluate`` does: the
-        pending equal-shape batches run as one group when K are pending or
-        a batch of another shape comes (``_eval_group``, one host->device
-        copy of the stacked group through pinned memory).
+        ``eval_batches_per_call`` K > 1 fuses as ``evaluate`` does, each
+        run of ``equal_shape_runs`` as one group once it is complete
+        (``_eval_group``, one host->device copy of the stacked group
+        through pinned memory).
 
         Spans (``utils.profiling.span``): per batch ``gdmcf.eval.assemble``
         (the union of its rows and its mask), ``gdmcf.eval.ground_truth``
@@ -996,7 +1001,7 @@ class Trainer:
                 else:
                     acc.add(gt, pred.cpu().numpy())
 
-        def single(idx, rows, mask, sharded=False):
+        def single(idx, rows, mask, sharded):
             with span("gdmcf.eval.single"):
                 rows_d, idx_d = self._put_batch(rows, idx,
                                                 replicate=not sharded)
@@ -1007,40 +1012,30 @@ class Trainer:
                     block=self.row_block(idx.size) if sharded else None)
             count(idx, sharded, pred)
 
-        def flush(pending):
-            if len(pending) == 1:
-                single(*pending[0])
-            elif pending:
-                with span("gdmcf.eval.group"):
-                    ids = self._eval_group(
-                        np.stack([p[1] for p in pending]),
-                        np.stack([p[0] for p in pending]),
-                        None if own_mask
-                        else np.stack([p[2] for p in pending]),
-                        top_k, generator)
-                for j, p in enumerate(pending):
-                    count(p[0], False, ids[j])
-            pending.clear()
+        def batches():   # (ids, rows, mask, sharded) in batch order
+            for start in starts:
+                idx = np.arange(start, min(start + bs, n), dtype=np.int64)
+                sharded = self._eval_shardable(idx.size)
+                if sharded:   # only on a mesh, where K is 1
+                    lo, lb = self._local_eval_slice(start, idx.size)
+                    idx = np.arange(lo, lo + lb, dtype=np.int64)
+                with span("gdmcf.eval.assemble"):
+                    rows = union(input_csrs, idx)
+                    mask = rows if own_mask else union(mask_csrs, idx)
+                yield idx, rows, mask, sharded
 
-        pending = []   # (ids, rows, mask) of a group being gathered
-        for start in starts:
-            idx = np.arange(start, min(start + bs, n), dtype=np.int64)
-            sharded = self._eval_shardable(idx.size)
-            if sharded:
-                lo, lb = self._local_eval_slice(start, idx.size)
-                idx = np.arange(lo, lo + lb, dtype=np.int64)
-            with span("gdmcf.eval.assemble"):
-                rows = union(input_csrs, idx)
-                mask = rows if own_mask else union(mask_csrs, idx)
-            if k == 1:   # always on a mesh, the only place a batch shards
-                single(idx, rows, mask, sharded)
+        for run in equal_shape_runs(batches(), k, lambda b: b[1].shape):
+            if len(run) == 1:
+                single(*run[0])
                 continue
-            if pending and rows.shape != pending[0][1].shape:
-                flush(pending)   # a trailing partial batch runs alone
-            pending.append((idx, rows, mask))
-            if len(pending) == k:
-                flush(pending)
-        flush(pending)
+            with span("gdmcf.eval.group"):
+                ids = self._eval_group(
+                    np.stack([b[1] for b in run]),
+                    np.stack([b[0] for b in run]),
+                    None if own_mask else np.stack([b[2] for b in run]),
+                    top_k, generator)
+            for b, pred in zip(run, ids):
+                count(b[0], b[3], pred)
         with span("gdmcf.eval.fetch"):
             if use_reduce:
                 return self._reduce_metric_acc(acc)

@@ -12,7 +12,8 @@ grouping code.
   parameter within rtol 1e-4 and an atol of 1e-3 x lr; every moment within
   one ulp of its storage type (of its value and of its decayed previous
   one) plus the gradient's float32 error.
-- The grouping rules the JAX package's tests pin, one case each.
+- The grouping rules the JAX package's tests pin, one case each, and the
+  edge cases of ``equal_shape_runs``.
 - K against 1 in the port: exactly (the same steps, draws and sums).
 - Steps one at a time on a (1, 2) gloo mesh and under ``debug_nans``.
 """
@@ -40,6 +41,7 @@ from gdmcf_torch.data.native import NativeCSR  # noqa: E402
 from gdmcf_torch.ops import fused_adamw as TA  # noqa: E402
 from gdmcf_torch.ops import metrics as TM  # noqa: E402
 from gdmcf_torch.train.trainer import Trainer as TTrainer  # noqa: E402
+from gdmcf_torch.train.trainer import equal_shape_runs  # noqa: E402
 from gdmcf_tpu.ops import fused_adamw as JA  # noqa: E402
 import test_torch_onehot_modes as OH  # noqa: E402
 import test_torch_train as TR  # noqa: E402
@@ -213,14 +215,15 @@ def eval_equal(k, streaming):
     assert got[0] == got[1]
 
 
-def prefix_fuses(monkeypatch):
+def prefix_fuses(monkeypatch, k=8, want_groups=(5,)):
     """tests/test_round2_fixes.py:279: 5 full batches and a partial one at
-    K 8 make one fused group of 5, then one single batch."""
+    K 8 make one fused group of 5, then one single batch (at K 1, six
+    single batches)."""
     n_user, n_item = 44, 20
     train, gt = binary(1, n_user, n_item, 0.3), binary(6, n_user, n_item, 0.1)
     kw = dict(batch_size=8, topN=[5, 10], drop_last=False)
     seq = TTrainer(small_cfg(eval_batches_per_call=1, **kw), n_user, n_item)
-    fused = TTrainer(small_cfg(eval_batches_per_call=8, **kw), n_user,
+    fused = TTrainer(small_cfg(eval_batches_per_call=k, **kw), n_user,
                      n_item)
     fused.model.load_state_dict(seq.model.state_dict())
     groups, steps = [], []
@@ -238,8 +241,8 @@ def prefix_fuses(monkeypatch):
     monkeypatch.setattr(fused, "eval_step", count_step)
     state = seq.init_state()
     got = fused.evaluate(state, train, gt, train, [5, 10])
-    # one group of the 5 full batches, then the partial batch alone
-    assert groups == [5] and steps == [8] * 5 + [4]
+    # the groups of the full batches, then the partial batch alone
+    assert groups == list(want_groups) and steps == [8] * 5 + [4]
     assert got == seq.evaluate(state, train, gt, train, [5, 10])
 
 
@@ -259,15 +262,64 @@ def steps_per_call_epoch():
     assert out[0] == out[1] == (5, out[0][1])
 
 
+def runs_of(keys, k):
+    """The batch numbers of ``equal_shape_runs``' runs over ``keys``."""
+    return [[i for i, _ in run]
+            for run in equal_shape_runs(enumerate(keys), k, lambda e: e[1])]
+
+
+def runs_k_past_the_batches():
+    """K above the number of batches: one run of them all, a trailing
+    partial batch alone; both evaluations at K 16 over 5 batches give K
+    1's metrics."""
+    assert runs_of("aaaaa", 16) == [[0, 1, 2, 3, 4]]
+    assert runs_of("aaap", 16) == [[0, 1, 2], [3]]
+    eval_equal(16, streaming=False)
+    eval_equal(16, streaming=True)
+
+
+def runs_partial_in_the_middle():
+    """A batch of another shape in the middle ends the run before it and
+    runs alone; a run is yielded once complete, before the next batch is
+    taken when it is full (the streaming evaluation assembles a batch
+    only then)."""
+    assert runs_of("aaabaa", 2) == [[0, 1], [2], [3], [4, 5]]
+    assert runs_of("aaabaa", 8) == [[0, 1, 2], [3], [4, 5]]
+    taken = []
+
+    def batches():
+        for i, key in enumerate("aabaa"):
+            taken.append(i)
+            yield key
+    runs = equal_shape_runs(batches(), 2, lambda key: key)
+    assert next(runs) == ["a", "a"] and taken == [0, 1]
+    assert next(runs) == ["b"] and taken == [0, 1, 2, 3]
+    assert list(runs) == [["a", "a"]] and taken == [0, 1, 2, 3, 4]
+
+
+def runs_all_alone(monkeypatch):
+    """K 1, or every batch of its own shape: every run is one batch, and
+    the evaluation at K 1 calls no group."""
+    assert runs_of("aaaa", 1) == [[0], [1], [2], [3]]
+    assert runs_of("abcd", 8) == [[0], [1], [2], [3]]
+    assert runs_of("", 8) == []
+    prefix_fuses(monkeypatch, k=1, want_groups=())
+
+
 @pytest.mark.parametrize("case", [
     "round5_partial_batch", "round2_evaluate_k4", "round2_streaming_k3",
-    "round2_prefix_fuses", "train_smoke_steps_per_call"])
+    "round2_prefix_fuses", "train_smoke_steps_per_call",
+    "runs_k_past_the_batches", "runs_partial_in_the_middle",
+    "runs_all_alone"])
 def test_grouping_rules_of_the_jax_tests(monkeypatch, case):
     {"round5_partial_batch": partial_batch_steps,
      "round2_evaluate_k4": lambda: eval_equal(4, streaming=False),
      "round2_streaming_k3": lambda: eval_equal(3, streaming=True),
      "round2_prefix_fuses": lambda: prefix_fuses(monkeypatch),
-     "train_smoke_steps_per_call": steps_per_call_epoch}[case]()
+     "train_smoke_steps_per_call": steps_per_call_epoch,
+     "runs_k_past_the_batches": runs_k_past_the_batches,
+     "runs_partial_in_the_middle": runs_partial_in_the_middle,
+     "runs_all_alone": lambda: runs_all_alone(monkeypatch)}[case]()
 
 
 # ---------------------------------------------------------------------------

@@ -127,7 +127,7 @@ def test_hybrid_propagation_matches_plain(cuda):
     i0 = torch.from_numpy(rng.standard_normal((900, 64)).astype(
         np.float32)).to(cuda)
     T.reset_launch_counts()
-    u, i = TG.propagate_hybrid(u0, i0, h, 2)
+    u, i = TG.propagate_rows(u0, i0, h.fwd_rows, h.t_rows, 2)
     assert T.LAUNCHES == {"spmm_rows_fwd": 2, "spmm_rows_t": 2}
     up, ip = TG._layers(u0, i0, 2,
                         lambda x: T.hybrid_spmm_reference(h, x, False),
@@ -159,11 +159,13 @@ def test_product_backward_matches_plain_and_dense(cuda, d):
     e0, w_u, w_i = (rand_x(s, n, d, cuda)
                     for s, n in ((6, 1500), (7, 600), (8, 900)))
     T.reset_launch_counts()
-    g = lgn_grad(lambda u, i: TG.propagate_hybrid(u, i, h, 3), e0, w_u, w_i)
+    def prop(u, i):
+        return TG.propagate_rows(u, i, h.fwd_rows, h.t_rows, 3)
+
+    g = lgn_grad(prop, e0, w_u, w_i)
     torch.cuda.synchronize()
     assert T.LAUNCHES == {"spmm_rows_fwd": 6, "spmm_rows_t": 6}
-    again = lgn_grad(lambda u, i: TG.propagate_hybrid(u, i, h, 3), e0, w_u,
-                     w_i)
+    again = lgn_grad(prop, e0, w_u, w_i)
     torch.cuda.synchronize()
     assert torch.equal(g, again), "two backward passes differ"
     torch.use_deterministic_algorithms(True, warn_only=True)

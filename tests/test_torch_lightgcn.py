@@ -99,14 +99,17 @@ def jax_raw_tables(key):
 def test_propagation_matches_jax_frozen_tables(fmt, layers):
     r = interactions(2)
     key = jax.random.PRNGKey(3)
+    def rows(u, i, a, k):
+        return TG.propagate_rows(u, i, a.fwd_rows, a.t_rows, k)
+
     if fmt == "hybrid":
         j_op = (JG.normalized_bipartite_hybrid(r), True)
         t_op = TG.normalized_bipartite_hybrid(r)
-        prop = TG.propagate_hybrid
+        prop = rows
     elif fmt == "sparse":
         j_op = (JG.normalized_bipartite_sparse(r, br=16, bc=32), True)
         t_op = TG.normalized_bipartite_sparse(r, br=16, bc=32)
-        prop = TG.propagate_sparse
+        prop = rows
     else:
         j_op, t_op = None, t_(TG.normalized_bipartite_blocks(r))
         prop = TG.propagate
@@ -127,7 +130,8 @@ def test_hybrid_propagation_matches_dense_in_the_port():
     g = torch.Generator().manual_seed(0)
     u0, i0 = DNNlightGCN.draw_lgn_table(N_USER, N_ITEM, LGN_DIM, g)
     ud, id_ = TG.propagate(u0, i0, t_(TG.normalized_bipartite_blocks(r)), 2)
-    uh, ih = TG.propagate_hybrid(u0, i0, TG.normalized_bipartite_hybrid(r), 2)
+    h = TG.normalized_bipartite_hybrid(r)
+    uh, ih = TG.propagate_rows(u0, i0, h.fwd_rows, h.t_rows, 2)
     torch.testing.assert_close(uh, ud, **TOL)
     torch.testing.assert_close(ih, id_, **TOL)
 
@@ -176,3 +180,87 @@ def test_operand_types():
     h = TG.normalized_bipartite_hybrid(r)
     assert isinstance(h, HybridSparse) and h.device.type == "cpu"
     assert isinstance(JS.to_hybrid(r.tocoo()), JS.HybridSparse)
+
+
+def graph_case(case):
+    """(interactions, whether the mirrors degree-sort) of a graph case."""
+    if case == "empty_rows_and_cols":
+        r = interactions(8).tolil()
+        r[3:9, :] = 0
+        r[:, 40:55] = 0
+        return r.tocsr(), False
+    if case == "counts":
+        r = interactions(9)
+        r.data = np.random.default_rng(9).integers(
+            1, 5, r.nnz).astype(np.float32)
+        return r, False
+    return interactions(10), case == "degree_sort"
+
+
+@pytest.mark.parametrize("br,bc", [(8, 16), (16, 32)])
+@pytest.mark.parametrize("case", ["ragged", "empty_rows_and_cols",
+                                  "degree_sort", "counts"])
+def test_row_operands_equal_the_mirrors_operands(case, br, bc):
+    """normalized_row_operands builds no tile and gives, field for field,
+    the row operands of both tile formats at the same grid (70 x 150 is a
+    multiple of neither grid). With degree_sort the mirrors permute N; the
+    function gets the interactions permuted the same way."""
+    r, degree_sort = graph_case(case)
+    hybrid = TG.normalized_bipartite_hybrid(r, br=br, bc=bc,
+                                            degree_sort=degree_sort)
+    block = TG.normalized_bipartite_sparse(r, br=br, bc=bc,
+                                           degree_sort=degree_sort)
+    if degree_sort:
+        (hybrid, (rp, cp)), block = hybrid, block[0]
+        r = r.tocsr()[rp][:, cp]
+    fwd, t = TG.normalized_row_operands(r, br, bc)
+    assert fwd.n_out == -(-N_USER // br) * br
+    assert t.n_out == -(-N_ITEM // bc) * bc
+    for mirror in (hybrid, block):
+        for got, want in ((fwd, mirror.fwd_rows), (t, mirror.t_rows)):
+            for name in got._TENSORS:
+                assert torch.equal(getattr(got, name),
+                                   getattr(want, name)), name
+            assert (got.n_part, got.transpose, got.n_out) == (
+                want.n_part, want.transpose, want.n_out)
+
+
+def refuse(*a, **k):
+    raise AssertionError("a run path built tiles")
+
+
+@pytest.mark.parametrize("path", ["pretrainer_hybrid", "pretrainer_block",
+                                  "pretrain_above_the_limit",
+                                  "backbone_above_the_limit"])
+def test_no_run_path_builds_a_tile(monkeypatch, path):
+    """With ``to_hybrid`` and ``to_block_sparse`` refusing, the pretrainer
+    on either sparse form takes a step, pretrain above the dense limit
+    trains, and the registry's lightGCN backbone above it runs a forward
+    pass."""
+    monkeypatch.setattr(TG, "to_hybrid", refuse)
+    monkeypatch.setattr(TG, "to_block_sparse", refuse)
+    r = interactions(11)
+    kw = dict(n_layers=2, latent_dim=8, batch_size=16, seed=1,
+              block_size=16, device="cpu")
+    if path.startswith("pretrainer"):
+        pt = TG.BPRPretrainer(
+            r, sparse="hybrid" if path == "pretrainer_hybrid" else True, **kw)
+        assert pt.operands() is not None
+        assert np.isfinite(pt.loss_total(pt.steps(1)))
+        return
+    monkeypatch.setattr(TG, "_DENSE_LIMIT_BYTES", 0)
+    if path == "pretrain_above_the_limit":
+        res = TG.pretrain(r, r, epochs=1, steps_per_epoch=2, sparse=None,
+                          evaluate=False, log=lambda *a: None, **kw)
+        assert np.isfinite(res.final_user).all()
+        return
+    cfg = TConfig(backbone="lightGCN", dims=[16], emb_size=10, device="cpu")
+    model = build_model(cfg, N_USER, N_ITEM, train_csr=r,
+                        generator=torch.Generator().manual_seed(1),
+                        device="cpu")
+    model.eval()
+    x = torch.from_numpy(r[:5].toarray())
+    with torch.no_grad():
+        out, _ = model(x, torch.zeros(5, dtype=torch.long), None,
+                       index=torch.arange(5))
+    assert torch.isfinite(out).all()

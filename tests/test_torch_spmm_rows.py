@@ -203,8 +203,9 @@ def test_propagate_hybrid_matches_jax_interpret():
     r.data[:] = 1.0
     u0 = rng.standard_normal((60, 16)).astype(np.float32)
     i0 = rng.standard_normal((140, 16)).astype(np.float32)
-    u, i = TG.propagate_hybrid(torch.from_numpy(u0), torch.from_numpy(i0),
-                               TG.normalized_bipartite_hybrid(r), 2)
+    th = TG.normalized_bipartite_hybrid(r)
+    u, i = TG.propagate_rows(torch.from_numpy(u0), torch.from_numpy(i0),
+                             th.fwd_rows, th.t_rows, 2)
     jh = JG.normalized_bipartite_hybrid(r)
     ju, ji = JG.propagate_hybrid(jnp.asarray(u0), jnp.asarray(i0),
                                  J.hybrid_meta(jh), J.hybrid_arrays(jh), 2,
