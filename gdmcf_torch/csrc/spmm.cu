@@ -15,25 +15,38 @@
 //
 // Operand (one per direction, built on the host by ops/spmm.py; the
 // transpose direction is the CSR of A^T, so both are the same gather):
-//   cols, vals   [nnz]        x row and value of each nonzero, in the order
-//                             of a CSR over the padded output rows
-//   seg_ptr      [n_seg + 1]  each row's range cut into segments of at most
-//   seg_row      [n_seg]      seg_len nonzeros, at least one per row (so an
-//                             empty row is written as zeros): segment s is
-//                             [seg_ptr[s], seg_ptr[s + 1]) of row seg_row[s]
-//   seg_part     [n_seg]      partial slot of a segment of a row of several
-//                             segments, -1 for a row of one
-//   row_seg_ptr  [n_out + 1]  the segments of each row
+//   cols, vals    [nnz]        x row and value of each nonzero, in the
+//                              schedule's order: each segment a range
+//   seg_ptr       [n_seg + 1]  segment s is [seg_ptr[s], seg_ptr[s + 1]),
+//   seg_row       [n_seg]      at most seg_len nonzeros of row seg_row[s];
+//                              every row has at least one (so an empty row
+//                              is written as zeros)
+//   seg_part      [n_seg]      partial slot of a segment of a row of several
+//                              segments, -1 for a row of one
+//   row_part_ptr  [n_out + 1]  the partial slots of each row: [row_part_ptr
+//                              [r], row_part_ptr[r + 1]), none for a row of
+//                              one segment
 //
-//   y[r, :] = sum_k vals[k] * x[cols[k], :] over row r's range.
+//   y[r, :] = sum_k vals[k] * x[cols[k], :] over row r's segments.
 //
 // Bound: gathers. At D = 64 a nonzero costs 2 * 64 flops against a 256-byte
 // x row, so the tensor cores have nothing to do; the least time is the
 // nonzeros (8 bytes each, value and column), the segment arrays, x and y
-// once over HBM, but every nonzero reads a whole x row. The x tables of the
-// Amazon-Book graph (24 to 28 MB) fit in the 50 MB L2, so after the first
-// touch the gathers come from L2, and what the design has to do is keep
-// many of them in flight:
+// once over HBM, but every nonzero reads a whole x row: 20M nonzeros gather
+// 5 GB a launch. Where x fits in the 50 MB L2 (the Amazon-Book tables, 24
+// to 28 MB; the item table of a 1M x 200k graph, whose gathers fall 90% in
+// its 31 MB of popular rows) the gathers come from L2 after the first
+// touch. Where they spread wider (that graph's 256 MB user table, 90% of
+// the gathers over 206 MB of it) most would come from HBM at the rate of
+// random 256-byte reads, so the host schedules the operand in slabs
+// (ops/spmm.py decides from the operand and the card's L2): x's rows are
+// cut into slabs of a fixed share of the L2, each row longer than a
+// segment is cut at the slab boundaries of its columns, and the pieces run
+// slab-major, so the warps in flight gather from one slab and x is read
+// from HBM about once a launch. Its price is one partial (d floats written
+// and read back) for each piece of a cut row; a row of one segment is not
+// cut (pieces of a few nonzeros would cost a warp each), and these rows
+// run whole after the last slab. What the kernel does about the rest:
 //   - one warp per segment, eight warps per block, no shared memory and no
 //     block barrier; its segment's bounds, row and partial slot are four
 //     independent loads, so the first gathers wait on two load latencies;
@@ -46,11 +59,14 @@
 //     kernel is held to 40 registers so that 48 warps fit on an SM;
 //   - D > 64 is walked in 64-wide slices; D % 4 != 0 or an unaligned x
 //     takes a scalar path (a lane per column, kUnroll nonzeros in flight);
-//   - a hot row (a popular item has 34,681 nonzeros in A^T) is spread over
-//     many warps by its segments. A row of one segment writes y directly; a
-//     longer row's segments write partials, and the warp that finishes last
-//     (an integer counter per row) sums them in slot order. No float
+//   - a hot row (a popular item has 273,554 nonzeros in the 1M x 200k
+//     graph's A^T) is spread over many warps by its segments. A row of one
+//     segment writes y directly; a longer row's segments write partials,
+//     and the warp that finishes last (an integer counter per row) sums
+//     them in slot order, which the host gives in slab order. No float
 //     atomics: two launches on the same inputs give bitwise equal output.
+//     Slabbed, every cut row's last piece runs in the last slab, so these
+//     sums come at the end of the slabs, beside the short rows' work.
 // Columns at or past n_x read as zero (x may be shorter than the grid).
 // Offsets into x, y and the partials are 64-bit.
 
@@ -184,7 +200,7 @@ spmm_rows_kernel(const int* __restrict__ cols,
                  const int* __restrict__ seg_ptr,
                  const int* __restrict__ seg_row,
                  const int* __restrict__ seg_part,
-                 const int* __restrict__ row_seg_ptr,
+                 const int* __restrict__ row_part_ptr,
                  const float* __restrict__ x, float* y, float* part,
                  int* count, int n_seg, int d, long long n_x) {
   const int s = blockIdx.x * kWarps + threadIdx.x / kWarp;
@@ -205,20 +221,19 @@ spmm_rows_kernel(const int* __restrict__ cols,
   if (slot < 0) return;
 
   // the row's last segment to finish sums its partials, in slot order
-  const int first = row_seg_ptr[row];
-  const int n_row_seg = row_seg_ptr[row + 1] - first;
-  const int p0 = slot - (s - first);
+  const int p0 = row_part_ptr[row];
+  const int n_part = row_part_ptr[row + 1] - p0;
   __threadfence();
   __syncwarp();
   int done = 0;
   if (lane == 0) done = atomicAdd(count + p0, 1);
   done = __shfl_sync(kFull, done, 0);
-  if (done != n_row_seg - 1) return;
+  if (done != n_part - 1) return;
   __threadfence();
   float* yrow = y + (long long)row * d;
   for (int c = lane; c < d; c += kWarp) {
     float acc = 0.f;
-    for (int p = 0; p < n_row_seg; ++p)
+    for (int p = 0; p < n_part; ++p)
       acc += __ldcg(part + (long long)(p0 + p) * d + c);
     yrow[c] = acc;
   }
@@ -241,7 +256,7 @@ extern "C" {
 // when some row has several segments (n_part > 0).
 int gdmcf_spmm_rows(const int* cols, const float* vals, const int* seg_ptr,
                     const int* seg_row, const int* seg_part,
-                    const int* row_seg_ptr, const float* x, float* y,
+                    const int* row_part_ptr, const float* x, float* y,
                     float* part, int* count, int n_seg, int n_part, int d,
                     long long n_x, void* stream) {
   if (n_seg < 0 || n_part < 0 || d <= 0 || n_x < 0 ||
@@ -255,11 +270,11 @@ int gdmcf_spmm_rows(const int* cols, const float* vals, const int* seg_ptr,
   const unsigned grid = (unsigned)(((long long)n_seg + kWarps - 1) / kWarps);
   if (vec)
     spmm_rows_kernel<true><<<grid, kThreads, 0, st>>>(
-        cols, vals, seg_ptr, seg_row, seg_part, row_seg_ptr, x, y, part,
+        cols, vals, seg_ptr, seg_row, seg_part, row_part_ptr, x, y, part,
         count, n_seg, d, n_x);
   else
     spmm_rows_kernel<false><<<grid, kThreads, 0, st>>>(
-        cols, vals, seg_ptr, seg_row, seg_part, row_seg_ptr, x, y, part,
+        cols, vals, seg_ptr, seg_row, seg_part, row_part_ptr, x, y, part,
         count, n_seg, d, n_x);
   return (int)cudaGetLastError();
 }

@@ -12,6 +12,11 @@ What the products run on is a ``RowOperand`` per direction
 (``row_operands``): a CSR over the padded output rows holding only the
 nonzeros (the transpose gets its own CSR of A^T), each row's range cut into
 segments of at most ``ROW_SEGMENT`` nonzeros, the kernel's unit of work.
+At its first launch on a card an operand takes the schedule the kernel
+runs there (``launch_schedule``): the CSR's order, or, where the x rows
+that hold ``SPREAD_SHARE`` of its nonzeros take more bytes than the card's
+L2, slabs of ``SLAB_L2_SHARE`` of the L2 in x, run slab-major (counted in
+``SLABBED``).
 The run path builds these alone; the tile formats mirror the JAX ones for
 the tests and ``chip_smoke.py``, and outside this module only
 ``models.lightgcn``'s ``normalized_bipartite_*`` build them. A
@@ -38,11 +43,12 @@ into ``gdmcf_torch/_build/`` and loaded with ctypes.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -62,9 +68,20 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # the sweep of chip_smoke.py --profile at the Amazon-Book size (PERF.md)
 ROW_SEGMENT = 128
 
+# an operand is slabbed on a card when the fewest x rows that hold this
+# share of its nonzeros take more bytes than the card's L2: its gathers
+# would then come mostly from HBM
+SPREAD_SHARE = 0.9
+# a slab's x rows take this share of the card's L2: of 1/3, 1/2, 2/3 and
+# 5/6, 2/3 gave the 1M x 200k graph's transpose at D 64 its least time
+# (8 slabs; the sweep in PERF.md)
+SLAB_L2_SHARE = 2 / 3
+
 # launches of the kernel per direction since the last reset_launch_counts();
-# the wrapper adds one exactly where it launches the kernel
+# the wrapper adds one exactly where it launches the kernel, and one to
+# SLABBED where that launch ran a slabbed schedule
 LAUNCHES = {"spmm_rows_fwd": 0, "spmm_rows_t": 0}
+SLABBED = {"spmm_rows_fwd": 0, "spmm_rows_t": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_LOG = ""
@@ -72,36 +89,55 @@ BUILD_LOG = ""
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
-        LAUNCHES[name] = 0
+        LAUNCHES[name] = SLABBED[name] = 0
 
 
 # ---------------------------------------------------------------------------
 # row operand
 # ---------------------------------------------------------------------------
 
-@dataclass
+@dataclass(repr=False)
 class RowOperand:
     """One direction of a product, y[r] = sum_k vals[k] * x[cols[k]] over
-    row r's range: a CSR over the padded output rows, duplicates summed,
-    zero values dropped, every row present (an empty row gives zeros)."""
+    row r's nonzeros: a CSR over the padded output rows, duplicates summed,
+    zero values dropped, every row present (an empty row gives zeros), its
+    nonzeros in the order of its schedule (``row_segments``). In the CSR's
+    own order (``slab_rows`` 0) row r's nonzeros are ``cols[row_ptr[r]:
+    row_ptr[r + 1]]``; slabbed, each segment is a range of them, and a
+    row's nonzeros keep their column order."""
 
-    row_ptr: torch.Tensor      # [n_out + 1] int32
-    cols: torch.Tensor         # [nnz] int32, the x row of each nonzero
-    vals: torch.Tensor         # [nnz] float32
-    seg_ptr: torch.Tensor      # [n_seg + 1] int32, a segment's nonzeros
-    seg_row: torch.Tensor      # [n_seg] int32, the output row of a segment
-    seg_part: torch.Tensor     # [n_seg] int32, partial slot; -1 for a row
-    #                            of one segment, which writes y directly
-    row_seg_ptr: torch.Tensor  # [n_out + 1] int32, the segments of a row
+    row_ptr: torch.Tensor       # [n_out + 1] int32, the CSR's row pointer
+    cols: torch.Tensor          # [nnz] int32, the x row of each nonzero
+    vals: torch.Tensor          # [nnz] float32
+    seg_ptr: torch.Tensor       # [n_seg + 1] int32, a segment's nonzeros
+    seg_row: torch.Tensor       # [n_seg] int32, the output row of a segment
+    seg_part: torch.Tensor      # [n_seg] int32, partial slot; -1 for a row
+    #                             of one segment, which writes y directly
+    row_part_ptr: torch.Tensor  # [n_out + 1] int32, the partial slots of a
+    #                             row, none for a row of one segment
     n_part: int
     transpose: bool
+    spread_rows: int            # the fewest x rows that hold SPREAD_SHARE
+    #                             of the nonzeros
+    seg_len: int = ROW_SEGMENT  # nonzeros a segment holds at most
+    slab_rows: int = 0          # x rows a slab holds; 0: the CSR's order
+    n_slab: int = 1             # slabs the x rows span
 
     _TENSORS = ("row_ptr", "cols", "vals", "seg_ptr", "seg_row", "seg_part",
-                "row_seg_ptr")
+                "row_part_ptr")
+
+    def __repr__(self) -> str:
+        return (f"RowOperand(transpose={self.transpose}, n_out={self.n_out},"
+                f" nnz={self.nnz}, n_seg={self.n_seg}, n_part={self.n_part},"
+                f" n_slab={self.n_slab}, device={self.device})")
 
     def to(self, device) -> "RowOperand":
         kw = {f: getattr(self, f).to(device) for f in self._TENSORS}
-        return RowOperand(**kw, n_part=self.n_part, transpose=self.transpose)
+        return RowOperand(**kw, **self._counts())
+
+    def _counts(self) -> dict:
+        return {f.name: getattr(self, f.name) for f in fields(self)
+                if f.name not in self._TENSORS}
 
     @property
     def device(self) -> torch.device:
@@ -119,47 +155,123 @@ class RowOperand:
     def n_seg(self) -> int:
         return self.seg_row.shape[0]
 
+    def schedule(self, slab_rows: int,
+                 seg_len: Optional[int] = None) -> "RowOperand":
+        """The same nonzeros on another schedule (``row_segments``): x
+        rows in slabs of ``slab_rows`` (0: the CSR's order), segments of at
+        most ``seg_len`` (default this operand's), on this device."""
+        seg_len = seg_len or self.seg_len
+        seg_ptr, seg_row, cols, vals = (
+            getattr(self, f).cpu().numpy()
+            for f in ("seg_ptr", "seg_row", "cols", "vals"))
+        # back to the CSR's order: every schedule keeps a row's nonzeros in
+        # column order, so a stable sort by row restores it
+        csr = np.argsort(np.repeat(seg_row, np.diff(seg_ptr)), kind="stable")
+        cols, vals = cols[csr], vals[csr]
+        row_ptr = self.row_ptr.cpu().numpy()
+        order, *segs = row_segments(row_ptr, seg_len, cols, slab_rows)
+        # slabs the cut rows' pieces span (none cut: the CSR's order)
+        cut = slab_rows and bool((np.diff(row_ptr) > seg_len).any())
+        n_slab = -(-(int(cols.max()) + 1) // slab_rows) if cut else 1
+        return RowOperand(
+            self.row_ptr, *(torch.from_numpy(a).to(self.device) for a in (
+                cols[order], vals[order], *segs)),
+            **dict(self._counts(), n_part=int((segs[2] >= 0).sum()),
+                   seg_len=seg_len, slab_rows=slab_rows, n_slab=n_slab))
+
     def resegment(self, seg_len: int) -> "RowOperand":
         """The same nonzeros cut into segments of at most ``seg_len``."""
-        segs = row_segments(self.row_ptr.cpu().numpy(), seg_len)
-        return RowOperand(
-            self.row_ptr, self.cols, self.vals,
-            *(torch.from_numpy(a).to(self.device) for a in segs),
-            n_part=int((segs[2] >= 0).sum()), transpose=self.transpose)
+        return self.schedule(self.slab_rows, seg_len)
 
 
-def row_segments(row_ptr: np.ndarray, seg_len: int = ROW_SEGMENT):
-    """Cut each row's range into segments of at most ``seg_len`` nonzeros,
-    at least one per row. Returns (seg_ptr, seg_row, seg_part,
-    row_seg_ptr): segment ``row_seg_ptr[r] + i`` is the i-th of row r and
-    covers ``[seg_ptr[s], seg_ptr[s + 1])``, from ``row_ptr[r] + i *
-    seg_len``; the segments of a row of several get consecutive partial
-    slots, the others -1."""
+def row_segments(row_ptr: np.ndarray, seg_len: int = ROW_SEGMENT,
+                 cols: Optional[np.ndarray] = None, slab_rows: int = 0):
+    """The kernel's schedule of a CSR (``row_ptr``, its column ids
+    ``cols``): the order of its nonzeros and their segments.
+
+    Without slabs (``slab_rows`` 0) the nonzeros keep the CSR's order and
+    each row's range is cut into segments of at most ``seg_len``, at least
+    one per row. With slabs, the x rows are cut into slabs of
+    ``slab_rows``; a row of more than ``seg_len`` nonzeros is cut at the
+    slab boundaries of its columns (sorted, so each piece is a range) and
+    its pieces at ``seg_len``; the pieces run slab-major (slab 0's of every
+    such row in row order, then slab 1's, ...), and the rows of one
+    segment after them, whole and in row order.
+
+    Returns (order, seg_ptr, seg_row, seg_part, row_part_ptr): the
+    schedule's k-th nonzero is the CSR's ``order[k]``; segment s covers the
+    schedule's ``[seg_ptr[s], seg_ptr[s + 1])`` and belongs to row
+    ``seg_row[s]``; a row of several segments takes the partial slots
+    ``[row_part_ptr[r], row_part_ptr[r + 1])``, one a segment in the
+    schedule's (so the slabs') order, ``seg_part[s]``; a row of one has
+    none and ``seg_part`` -1."""
     if seg_len < 1:
         raise ValueError(f"seg_len {seg_len} must be at least 1")
     row_ptr = np.asarray(row_ptr, np.int64)
     widths = np.diff(row_ptr)
-    counts = np.maximum(1, -(-widths // seg_len))
-    row_seg_ptr = np.concatenate([[0], np.cumsum(counts)])
-    seg_row = np.repeat(np.arange(len(widths)), counts)
-    seg_ptr = np.append(row_ptr[seg_row] + (np.arange(len(seg_row))
-                                            - row_seg_ptr[seg_row]) * seg_len,
-                        row_ptr[-1])
-    multi = counts[seg_row] > 1
-    seg_part = np.where(multi, np.cumsum(multi) - 1, -1)
-    return tuple(a.astype(np.int32)
-                 for a in (seg_ptr, seg_row, seg_part, row_seg_ptr))
+    n_out, nnz = len(widths), int(row_ptr[-1])
+    cut = widths > seg_len if slab_rows else np.zeros(n_out, bool)
+    if cut.any():
+        rows = np.repeat(np.arange(n_out), widths)
+        in_cut = cut[rows]
+        idx = np.flatnonzero(in_cut)
+        slab = np.asarray(cols)[idx] // slab_rows
+        # stable: (slab, row, column) order; a radix sort below 2**16 slabs
+        by_slab = np.argsort(slab.astype(np.uint16) if slab.max() < 2**16
+                             else slab, kind="stable")
+        idx, slab = idx[by_slab], slab[by_slab]
+        r = rows[idx]
+        start = np.flatnonzero(np.r_[True, (slab[1:] != slab[:-1])
+                                     | (r[1:] != r[:-1])])
+        whole = np.flatnonzero(~cut)
+        order = np.concatenate([idx, np.flatnonzero(~in_cut)])
+        piece_row = np.concatenate([r[start], whole])
+        piece_len = np.concatenate([np.diff(np.append(start, len(idx))),
+                                    widths[whole]])
+    else:
+        order = np.arange(nnz)
+        piece_row, piece_len = np.arange(n_out), widths
+    piece_ptr = np.concatenate([[0], np.cumsum(piece_len)])
+    counts = np.maximum(1, -(-piece_len // seg_len))
+    seg_piece = np.repeat(np.arange(len(piece_len)), counts)
+    n_seg = len(seg_piece)
+    first = np.cumsum(counts) - counts
+    seg_ptr = np.append(piece_ptr[seg_piece]
+                        + (np.arange(n_seg) - first[seg_piece]) * seg_len,
+                        nnz)
+    seg_row = piece_row[seg_piece]
+    per_row = np.bincount(seg_row, minlength=n_out)
+    row_part_ptr = np.concatenate(
+        [[0], np.cumsum(np.where(per_row > 1, per_row, 0))])
+    # a segment's rank among its row's, in the schedule's order
+    by_row = np.argsort(seg_row, kind="stable")
+    rank = np.empty(n_seg, np.int64)
+    rank[by_row] = np.arange(n_seg) - (np.cumsum(per_row)
+                                       - per_row)[seg_row[by_row]]
+    seg_part = np.where(per_row[seg_row] > 1, row_part_ptr[seg_row] + rank,
+                        -1)
+    return (order, *(a.astype(np.int32)
+                     for a in (seg_ptr, seg_row, seg_part, row_part_ptr)))
+
+
+def spread_rows(cols: np.ndarray) -> int:
+    """The fewest x rows that hold ``SPREAD_SHARE`` of the nonzeros whose
+    x rows are ``cols``."""
+    if not len(cols):
+        return 0
+    hits = np.cumsum(np.sort(np.bincount(cols))[::-1])
+    return int(np.searchsorted(hits, SPREAD_SHARE * len(cols))) + 1
 
 
 def row_operand(csr: sp.csr_matrix, transpose: bool) -> RowOperand:
     """A scipy CSR (duplicates summed, indices sorted) -> RowOperand (CPU
-    tensors); entries of value 0 are dropped."""
+    tensors) in the CSR's order; entries of value 0 are dropped."""
     csr = csr.copy()
     csr.eliminate_zeros()
     if csr.nnz >= 2**31 - 64:
         raise ValueError(f"{csr.nnz} nonzeros: the operand indexes them "
                          "with int32")
-    segs = row_segments(csr.indptr)
+    _, *segs = row_segments(csr.indptr)
 
     def t(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype))
@@ -167,13 +279,41 @@ def row_operand(csr: sp.csr_matrix, transpose: bool) -> RowOperand:
     return RowOperand(
         t(csr.indptr, np.int32), t(csr.indices, np.int32),
         t(csr.data, np.float32), *(torch.from_numpy(a) for a in segs),
-        n_part=int((segs[2] >= 0).sum()), transpose=transpose)
+        n_part=int((segs[2] >= 0).sum()), transpose=transpose,
+        spread_rows=spread_rows(csr.indices))
 
 
 def row_operands(csr: sp.csr_matrix) -> Tuple[RowOperand, RowOperand]:
     """The forward and the transpose operand of a canonical float32 CSR
     over the padded grid."""
     return row_operand(csr, False), row_operand(csr.T.tocsr(), True)
+
+
+@functools.lru_cache(maxsize=None)
+def card_l2_bytes(device: torch.device) -> int:
+    """The L2 cache of ``device``'s card, in bytes (asked once a card: every
+    launch reads it)."""
+    return torch.cuda.get_device_properties(device).L2_cache_size
+
+
+def launch_schedule(op: RowOperand, d: int,
+                    l2_bytes: Optional[int] = None) -> RowOperand:
+    """Put ``op``, in place, on the schedule the kernel runs at width ``d``
+    on a card of ``l2_bytes`` of L2 (default: ``op``'s card's), and return
+    it. Slabs of ``SLAB_L2_SHARE`` of the L2 where the x rows that hold
+    ``SPREAD_SHARE`` of its nonzeros (``spread_rows``, float32 rows of d)
+    take more than the L2, else the CSR's order. Built on the host once per
+    width; a CUDA graph must not capture an operand's first launch."""
+    if l2_bytes is None:
+        l2_bytes = card_l2_bytes(op.device)
+    row_bytes = 4 * d
+    slab_rows = 0 if op.spread_rows * row_bytes <= l2_bytes else max(
+        1, int(SLAB_L2_SHARE * l2_bytes) // row_bytes)
+    if slab_rows != op.slab_rows:
+        new = op.schedule(slab_rows)
+        for f in fields(op):
+            setattr(op, f.name, getattr(new, f.name))
+    return op
 
 
 # ---------------------------------------------------------------------------
@@ -418,6 +558,7 @@ def _launch(op: RowOperand, x: torch.Tensor) -> torch.Tensor:
     lib = build_kernels()
     d = x.shape[1]
     name = "spmm_rows_t" if op.transpose else "spmm_rows_fwd"
+    launch_schedule(op, d)
     with torch.cuda.device(x.device):
         y = torch.empty((op.n_out, d), dtype=torch.float32, device=x.device)
         part = count = None
@@ -430,12 +571,13 @@ def _launch(op: RowOperand, x: torch.Tensor) -> torch.Tensor:
         code = lib.gdmcf_spmm_rows(
             op.cols.data_ptr(), op.vals.data_ptr(), op.seg_ptr.data_ptr(),
             op.seg_row.data_ptr(), op.seg_part.data_ptr(),
-            op.row_seg_ptr.data_ptr(), x.data_ptr(), y.data_ptr(),
+            op.row_part_ptr.data_ptr(), x.data_ptr(), y.data_ptr(),
             None if part is None else part.data_ptr(),
             None if count is None else count.data_ptr(),
             op.n_seg, op.n_part, d, x.shape[0], stream)
         _check(lib, code, name)
         LAUNCHES[name] += 1
+        SLABBED[name] += op.n_slab > 1
     return y
 
 

@@ -115,6 +115,107 @@ def test_kernel_segments_and_determinism(cuda, seg_len, transpose):
         y, T.hybrid_spmm_reference(h.to(cuda), x, transpose), **TOL)
 
 
+def slab_csr(seed, n_x, long_row):
+    """A 64 x n_x CSR: short random rows, an empty row (3), a row over every
+    x row (7) and one of ``long_row`` nonzeros in the first x rows (11)."""
+    m = sp.random(64, n_x, density=0.02, format="lil", dtype=np.float32,
+                  random_state=np.random.RandomState(seed))
+    m[3, :] = 0
+    m[7, :] = 0.5
+    m[11, :long_row] = 0.25
+    return m.tocsr()
+
+
+@pytest.mark.parametrize("d", [64, 50])
+@pytest.mark.parametrize("seg_len,l2_rows", [
+    (T.ROW_SEGMENT, 16), (T.ROW_SEGMENT, 600), (5, 16), (3, 200),
+    (T.ROW_SEGMENT, 1 << 20)])
+def test_kernel_on_a_slabbed_operand_matches_plain(cuda, monkeypatch,
+                                                   seg_len, l2_rows, d):
+    """On a card whose L2 holds ``l2_rows`` x rows the rule slabs the
+    operand (not the last case); the launch then matches the plain sum on
+    the slabbed and on the unslabbed schedule, two launches are bitwise
+    equal, and each counts once in LAUNCHES and, slabbed, in SLABBED."""
+    monkeypatch.setattr(T, "card_l2_bytes", lambda device: l2_rows * 4 * d)
+    op = T.row_operand(slab_csr(1, 1200, 300), True).resegment(seg_len)
+    plain = op.to(cuda)
+    op = op.to(cuda)
+    x = rand_x(2, 1100, d, cuda)               # x shorter than the grid
+    T.reset_launch_counts()
+    y = T.spmm_rows(op, x)
+    again = T.spmm_rows(op, x)
+    torch.cuda.synchronize()
+    slabbed = op.spread_rows > l2_rows
+    assert (op.n_slab > 1) == slabbed and op.seg_len == seg_len
+    assert T.LAUNCHES == {"spmm_rows_fwd": 0, "spmm_rows_t": 2}
+    assert T.SLABBED == {"spmm_rows_fwd": 0, "spmm_rows_t": 2 * slabbed}
+    assert torch.equal(y, again), "two launches differ"
+    torch.testing.assert_close(y, T.spmm_rows_reference(op, x), **TOL)
+    torch.testing.assert_close(y, T.spmm_rows_reference(plain, x), **TOL)
+    assert not y[3].any(), "an empty row must give zeros"
+
+
+def test_a_row_of_thousands_of_partials_sums_right(cuda, monkeypatch):
+    """Slabs of 8 x rows: a row over 20,000 x rows takes 2,500 partials,
+    and one of 4,000 nonzeros 500 (2,000 at segments of 2)."""
+    monkeypatch.setattr(T, "card_l2_bytes",
+                        lambda device: int(8 * 4 * 64 / T.SLAB_L2_SHARE) + 1)
+    csr = sp.vstack([slab_csr(3, 20_000, 0),
+                     sp.csr_matrix((np.full(4000, 0.75, np.float32),
+                                    (np.zeros(4000, int), np.arange(4000))),
+                                   shape=(1, 20_000))]).tocsr()
+    csr.sort_indices()
+    x = rand_x(5, 20_000, 64, cuda)
+    dense = torch.from_numpy(csr.toarray()).to(cuda)
+    want = dense @ x
+    # rows of 4,000-20,000 terms cancel down to a small sum: the rtol is
+    # taken of the sum of the terms' magnitudes, the scale of its rounding
+    scale = TOL["rtol"] * (dense.abs() @ x.abs()) + TOL["atol"]
+    for seg_len in (T.ROW_SEGMENT, 2):
+        op = T.row_operand(csr, False).resegment(seg_len).to(cuda)
+        y = T.spmm_rows(op, x)
+        torch.cuda.synchronize()
+        assert op.slab_rows == 8 and op.n_slab == 2500
+        per_row = torch.bincount(op.seg_row.long(), minlength=op.n_out)
+        assert int(per_row[7]) >= 2500
+        assert int(per_row[64]) == (2000 if seg_len == 2 else 500)
+        for other in (T.spmm_rows_reference(op, x), want):
+            assert bool(((y - other).abs() <= scale).all())
+
+
+def test_the_cards_l2_slabs_only_the_spread_operand(cuda):
+    """At the card's own L2, D 64: the transpose of a random 400,000 x
+    1,000 graph (x: a 102 MB user table, its gathers spread over most of
+    it) is slabbed; its forward (x: 1,000 item rows), and both directions
+    of a power-law graph of Amazon-Book's size (108,822 x 94,949, 2.18M
+    interactions, built as the registry's lightGCN backbone builds N), are
+    not."""
+    from h100bench.data import power_law_graph
+
+    rng = np.random.default_rng(8)
+    wide = sp.csr_matrix((np.ones(1_000_000, np.float32),
+                          (rng.integers(0, 400_000, 1_000_000),
+                           rng.integers(0, 1_000, 1_000_000))),
+                         shape=(400_000, 1_000))
+    wide.sum_duplicates()
+    wide.data[:] = 1.0
+    amazon = power_law_graph(2, 108_822, 94_949, 2_180_000)
+    for graph, slabbed in ((wide, True), (amazon, False)):
+        fwd, t = (op.to(cuda) for op in
+                  TG.normalized_operand(graph, "hybrid", 128, 8))
+        x = rand_x(7, fwd.n_out, 64, cuda)
+        T.reset_launch_counts()
+        T.spmm_rows(fwd, rand_x(6, t.n_out, 64, cuda))
+        y = T.spmm_rows(t, x)
+        torch.cuda.synchronize()
+        assert T.LAUNCHES == {"spmm_rows_fwd": 1, "spmm_rows_t": 1}
+        assert T.SLABBED == {"spmm_rows_fwd": 0, "spmm_rows_t": int(slabbed)}
+        assert fwd.n_slab == 1 and (t.n_slab > 1) == slabbed
+        assert t.slab_rows == (int(T.SLAB_L2_SHARE * T.card_l2_bytes(cuda))
+                               // 256 if slabbed else 0)
+        torch.testing.assert_close(y, T.spmm_rows_reference(t, x), **TOL)
+
+
 def test_hybrid_propagation_matches_plain(cuda):
     rng = np.random.default_rng(3)
     r = sp.random(600, 900, density=0.02,

@@ -128,22 +128,185 @@ def test_hybrid_row_operand_holds_tiles_and_remainder(transpose):
 @pytest.mark.parametrize("seg_len", [1, 3, 64, 1000])
 def test_row_segments_cover_each_row_once_in_order(seg_len):
     row_ptr = np.array([0, 0, 5, 6, 6, 140, 1140], np.int32)
-    seg_ptr, seg_row, seg_part, row_seg_ptr = T.row_segments(row_ptr,
-                                                              seg_len)
-    assert len(row_seg_ptr) == len(row_ptr) and row_seg_ptr[-1] == len(seg_row)
+    order, seg_ptr, seg_row, seg_part, row_part_ptr = T.row_segments(
+        row_ptr, seg_len)
+    np.testing.assert_array_equal(order, np.arange(row_ptr[-1]))
+    assert len(row_part_ptr) == len(row_ptr)
     assert len(seg_ptr) == len(seg_row) + 1
     slots = []
     for r in range(len(row_ptr) - 1):
-        segs = range(row_seg_ptr[r], row_seg_ptr[r + 1])
-        assert len(segs) >= 1 and all(seg_row[s] == r for s in segs)
+        segs = np.flatnonzero(seg_row == r)
+        assert len(segs) >= 1
+        np.testing.assert_array_equal(segs, np.arange(segs[0], segs[-1] + 1))
         covered = [k for s in segs for k in range(seg_ptr[s], seg_ptr[s + 1])]
         assert covered == list(range(row_ptr[r], row_ptr[r + 1]))
         assert all(seg_ptr[s + 1] - seg_ptr[s] <= seg_len for s in segs)
         if len(segs) == 1:
             assert seg_part[segs[0]] == -1
+            assert row_part_ptr[r + 1] == row_part_ptr[r]
         else:
+            assert list(seg_part[segs]) == list(range(row_part_ptr[r],
+                                                      row_part_ptr[r + 1]))
             slots += [seg_part[s] for s in segs]
     assert slots == list(range(len(slots)))   # consecutive, from 0
+
+
+N_X = 1200   # x rows of slab_csr
+
+
+def slab_csr(seed=13):
+    """A CSR over N_X x rows: short random rows, an empty row (3), a row
+    over every x row (7), and rows of 200 nonzeros in x rows 400-599 (11)
+    and 300 in 0-599 (19)."""
+    m = sp.random(50, N_X, density=0.02, format="lil", dtype=np.float32,
+                  random_state=np.random.RandomState(seed))
+    m[3, :] = 0
+    m[7, :] = 0.5
+    m[11, 400:600] = 0.25
+    m[19, :600] = 0.125
+    csr = m.tocsr()
+    csr.sort_indices()
+    return csr
+
+
+SLAB_CASES = [  # (seg_len, slab_rows): slabs of 7 rows to one of 1200
+    (T.ROW_SEGMENT, 7), (T.ROW_SEGMENT, 150), (T.ROW_SEGMENT, 300),
+    (T.ROW_SEGMENT, N_X), (5, 7), (5, 300), (1, 64)]
+
+
+@pytest.mark.parametrize("seg_len,slab_rows", SLAB_CASES)
+def test_slab_schedule_covers_every_nonzero_once_slab_major(seg_len,
+                                                            slab_rows):
+    csr = slab_csr()
+    order, seg_ptr, seg_row, seg_part, row_part_ptr = T.row_segments(
+        csr.indptr, seg_len, csr.indices, slab_rows)
+    nnz, n_out = csr.nnz, csr.shape[0]
+    np.testing.assert_array_equal(np.sort(order), np.arange(nnz))
+    assert seg_ptr[0] == 0 and seg_ptr[-1] == nnz
+    width = np.diff(seg_ptr)
+    assert (width >= 0).all() and (width <= seg_len).all()
+    rows = np.repeat(np.arange(n_out), np.diff(csr.indptr))[order]
+    cols = csr.indices[order]
+    seg_of = np.repeat(np.arange(len(seg_row)), width)
+    np.testing.assert_array_equal(rows, seg_row[seg_of])
+    cut = np.diff(csr.indptr) > seg_len
+    assert set(seg_row.tolist()) == set(range(n_out))   # every row, once+
+    # a row's nonzeros keep their column order
+    for r in range(n_out):
+        assert (np.diff(cols[rows == r]) > 0).all()
+    # the cut rows' segments first, slab-major, each inside one slab
+    is_cut = cut[seg_row]
+    n_cut = int(is_cut.sum())
+    assert is_cut[:n_cut].all() and not is_cut[n_cut:].any()
+    first, last = seg_ptr[:-1], np.maximum(seg_ptr[1:] - 1, seg_ptr[:-1])
+    slab = cols[np.minimum(first, nnz - 1)] // slab_rows
+    key = slab[:n_cut] * n_out + seg_row[:n_cut]
+    assert (np.diff(key) >= 0).all()
+    assert (cols[last[:n_cut]] // slab_rows == slab[:n_cut]).all()
+    # then the other rows, whole, in row order
+    rest = seg_row[n_cut:]
+    np.testing.assert_array_equal(rest, np.flatnonzero(~cut))
+    # partial slots: a split row's in the schedule's (slab) order
+    per_row = np.bincount(seg_row, minlength=n_out)
+    for r in range(n_out):
+        segs = np.flatnonzero(seg_row == r)
+        if per_row[r] == 1:
+            assert seg_part[segs[0]] == -1
+            assert row_part_ptr[r + 1] == row_part_ptr[r]
+        else:
+            np.testing.assert_array_equal(
+                seg_part[segs],
+                np.arange(row_part_ptr[r], row_part_ptr[r + 1]))
+    assert row_part_ptr[-1] == (seg_part >= 0).sum()
+    # row 7 (every x row) has a piece in every slab
+    assert len(np.unique(cols[rows == 7] // slab_rows)) == -(-N_X // slab_rows)
+
+
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("seg_len,slab_rows", SLAB_CASES)
+def test_slabbed_product_matches_unslabbed_and_dense(seg_len, slab_rows, d):
+    csr = slab_csr()
+    op = T.row_operand(csr, False).resegment(seg_len)
+    slabbed = op.schedule(slab_rows)
+    assert slabbed.n_slab == -(-N_X // slab_rows)
+    assert slabbed.n_seg >= op.n_seg and slabbed.nnz == op.nnz
+    # x shorter than the grid: its last 100 rows read as zero
+    x = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        (N_X - 100, d)).astype(np.float32))
+    y = T.spmm_rows(slabbed, x)
+    plain = T.spmm_rows(op, x)   # the same terms, summed in another order
+    assert float((y - plain).norm() / plain.norm()) < 1e-6
+    want = torch.from_numpy(csr.toarray()[:, :N_X - 100]).double() @ x.double()
+    for got in (y, plain):
+        assert float((got - want).norm() / want.norm()) < 1e-6
+    assert not y[3].any()
+    # back to the CSR's order: the operand it came from, tensor for tensor
+    back = slabbed.schedule(0)
+    for name in T.RowOperand._TENSORS:
+        assert torch.equal(getattr(back, name), getattr(op, name)), name
+    assert (back.n_part, back.n_slab, back.seg_len) == (op.n_part, 1,
+                                                        seg_len)
+
+
+def spread_or_not(spread):
+    """600 x 1000 CSR: its x rows uniform, or 97% of draws on x rows 0-39."""
+    rng = np.random.default_rng(5)
+    rows = rng.integers(0, 600, 24_000)
+    cols = rng.integers(0, 1000, 24_000)
+    if not spread:
+        cols = np.where(rng.random(24_000) < 0.97, cols % 40, cols)
+    m = sp.csr_matrix((np.ones(24_000, np.float32), (rows, cols)),
+                      shape=(600, 1000))
+    m.sum_duplicates()
+    m.sort_indices()
+    return m
+
+
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("seg_len", [8, T.ROW_SEGMENT])
+@pytest.mark.parametrize("spread", [True, False])
+def test_the_rule_slabs_gathers_that_spread_past_the_l2(spread, seg_len, d):
+    """Rows of about 40 nonzeros: cut at segments of 8, none cut at 128
+    (the schedule keeps the CSR's order, one slab)."""
+    op = T.row_operand(spread_or_not(spread), True).resegment(seg_len)
+    l2 = 80 * 4 * d    # the L2 holds 80 x rows
+    assert (op.spread_rows > 80) == spread
+    before = {name: getattr(op, name) for name in T.RowOperand._TENSORS}
+    assert T.launch_schedule(op, d, l2) is op
+    slabbed = spread and seg_len == 8
+    if spread:
+        assert op.slab_rows == int(T.SLAB_L2_SHARE * l2) // (4 * d)
+    else:
+        assert op.slab_rows == 0
+    if slabbed:
+        assert op.n_slab == -(-1000 // op.slab_rows) and op.n_slab > 1
+        assert f"n_slab={op.n_slab}" in repr(op)
+    else:
+        assert op.n_slab == 1
+        for name, t in before.items():
+            assert torch.equal(getattr(op, name), t), name
+    # the schedule is kept: a second launch at this width builds nothing
+    kept = {name: getattr(op, name) for name in T.RowOperand._TENSORS}
+    T.launch_schedule(op, d, l2)
+    assert all(getattr(op, n) is t for n, t in kept.items())
+    # a card whose L2 holds the spread rows takes the CSR's order back
+    T.launch_schedule(op, d, 1000 * 4 * d)
+    assert (op.slab_rows, op.n_slab) == (0, 1)
+    for name, t in before.items():
+        assert torch.equal(getattr(op, name), t), name
+
+
+@pytest.mark.parametrize("seg_len,slab_rows", SLAB_CASES[:4])
+def test_operand_counts_read_alike_on_both_schedules(seg_len, slab_rows):
+    from h100bench import costs_lightgcn as C
+
+    op = T.row_operand(slab_csr(), True).resegment(seg_len)
+    plain, slabbed = (C.operand_counts(o)
+                      for o in (op, op.schedule(slab_rows)))
+    for k in ("nnz", "n_out", "x_rows"):
+        assert plain[k] == slabbed[k], k
+    assert slabbed["n_seg"] >= plain["n_seg"]
+    assert slabbed["split_rows"] >= plain["split_rows"]
 
 
 @pytest.mark.parametrize("transpose", [False, True])
@@ -235,9 +398,10 @@ def test_cpu_operand_moves_and_refuses_a_mismatch():
     for op, src in ((moved.fwd_rows, h.fwd_rows), (moved.t_rows, h.t_rows)):
         for name in T.RowOperand._TENSORS:
             assert torch.equal(getattr(op, name), getattr(src, name))
-        assert (op.n_part, op.transpose) == (src.n_part, src.transpose)
+        assert op._counts() == src._counts()
     with pytest.raises(ValueError, match="operand on cpu"):
         T.spmm_rows(h.fwd_rows, torch.ones(80, 4, device="meta"))
     T.reset_launch_counts()
     T.hybrid_spmm(h, torch.ones(80, 4))
     assert T.LAUNCHES == {"spmm_rows_fwd": 0, "spmm_rows_t": 0}
+    assert T.SLABBED == {"spmm_rows_fwd": 0, "spmm_rows_t": 0}
