@@ -21,7 +21,9 @@ users and then the seed of ``NativeCSR.sample_bpr``, so at equal initial
 tables the port trains on the JAX package's triples. The Adam update is the
 port's AdamW kernel (``ops/fused_adamw``, K1) with float32 moments and no
 weight decay, which is the JAX package's Adam (b1 0.9, b2 0.999, eps 1e-8
-added after the square root).
+added after the square root). With ``ssl_reg > 0`` the pretrainer and
+``pretrain`` train SGL-ED instead (``models.sgl``: two edge-dropped views
+and a whole-table InfoNCE on the same encoder).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch
 
 from gdmcf_torch import resolve_device
 from gdmcf_torch.data.native import NativeCSR
+from gdmcf_torch.models import sgl as SGL
 from gdmcf_torch.models.layers import xavier_uniform
 from gdmcf_torch.ops.fused_adamw import (FusedAdamWState, fused_adamw_apply,
                                          fused_adamw_init)
@@ -274,7 +277,8 @@ def initial_table(n_rows: int, dim: int, seed: int, device=None
 
 
 def bpr_step(e0: torch.Tensor, opt_state: FusedAdamWState, prop: Propagator,
-             batch: torch.Tensor, n_user: int, lr: float, decay: float
+             batch: torch.Tensor, n_user: int, lr: float, decay: float,
+             views: "Optional[SGL.Views]" = None
              ) -> Tuple[FusedAdamWState, torch.Tensor]:
     """One BPR step in place on the leaf ``e0``: propagate, BPR loss plus
     ``decay`` times the L2 term on the batch's layer-0 rows, the gradient,
@@ -288,7 +292,11 @@ def bpr_step(e0: torch.Tensor, opt_state: FusedAdamWState, prop: Propagator,
     ``P s``: the same propagation run on s, the loss's gradient at the
     final tables (zero outside the batch's rows), plus the L2 term's at
     the batch's layer-0 rows. No table-sized gradient of a slice, a gather
-    or the layer mean is formed."""
+    or the layer mean is formed.
+
+    ``views`` (SGL-ED's, ``models.sgl.Views``) adds their weighted
+    InfoNCE to the loss and ``P_1 s' + P_2 s''`` to the gradient
+    (``Views.term``, ``Views.add_grad``); None is the BPR step alone."""
     users, pos, neg = batch
     rows = (users, n_user + pos, n_user + neg)
     with torch.no_grad():
@@ -307,10 +315,16 @@ def bpr_step(e0: torch.Tensor, opt_state: FusedAdamWState, prop: Propagator,
     seed = torch.zeros_like(e0)
     for r, g in zip(rows, grads[:3]):
         seed.index_put_((r,), g, accumulate=True)
+    if views is not None:
+        del fu, fi
+        ssl_loss, view_seeds = views.term(e0, users, pos, n_user)
     with span("gdmcf.bpr.grad"), torch.no_grad():
         grad = torch.cat(prop(seed))
         for r, g in zip(rows, grads[3:]):
             grad.index_put_((r,), g, accumulate=True)
+    if views is not None:
+        views.add_grad(grad, view_seeds)
+        total = total.detach() + ssl_loss
     opt_state = fused_adamw_apply({"e0": e0}, {"e0": grad}, opt_state,
                                   lr=lr)
     return opt_state, total.detach()
@@ -323,8 +337,9 @@ def _host_copy(t: torch.Tensor) -> np.ndarray:
 
 class PretrainerState(NamedTuple):
     """A saved start of a ``BPRPretrainer``: host copies of the table, the
-    moments and K1's count, the host generator's state and the steps
-    taken."""
+    moments and K1's count, the host generator's state, the steps taken
+    and, with SGL views, each view's kept-edge indices (never written in
+    place, so held, not copied)."""
 
     e0: np.ndarray
     mu: np.ndarray
@@ -332,6 +347,7 @@ class PretrainerState(NamedTuple):
     count: np.ndarray
     rng: dict
     n_steps: int
+    views: Optional[Tuple[np.ndarray, ...]] = None
 
 
 class BPRPretrainer:
@@ -358,6 +374,15 @@ class BPRPretrainer:
     ``n_steps`` counts the steps trained on since construction or the
     restored start; ``operands()`` gives the row operands of N and N^T
     the products run on (None for the dense N).
+
+    ``ssl_reg > 0`` makes the steps SGL-ED's (Wu et al., SIGIR 2021):
+    ``sgl`` is then a ``models.sgl.Views`` over the graph, ``ssl_ratio``
+    the share of interactions a view drops and ``ssl_temp`` the InfoNCE's
+    temperature; its two views are drawn from the host generator at
+    construction and again by ``redraw_views()`` (``pretrain`` calls it at
+    each later epoch's start), ``views()`` gives their kept-edge indices,
+    and ``state()`` / ``restore`` carry them too. ``ssl_reg == 0`` builds
+    no view and draws nothing for one (``sgl`` None).
     """
 
     def __init__(self, train_csr: sp.spmatrix, n_layers: int = 3,
@@ -366,7 +391,8 @@ class BPRPretrainer:
                  sparse: "bool | str | None" = None, block_size: int = 128,
                  block_rows: Optional[int] = None, device=None,
                  init_table: Optional[np.ndarray] = None,
-                 keep_batches: int = 8):
+                 keep_batches: int = 8, ssl_reg: float = 0.0,
+                 ssl_ratio: float = 0.1, ssl_temp: float = 0.2):
         dev = self.device = resolve_device(device)
         self.n_user, self.n_item = train_csr.shape
         self.prop = propagator(train_csr, n_layers, sparse, block_size,
@@ -387,6 +413,13 @@ class BPRPretrainer:
         self.ncsr = NativeCSR.from_scipy(train_csr, strict=False)
         self._batches = deque(maxlen=keep_batches)
         self.n_steps = 0
+        self.sgl = None
+        if ssl_reg > 0:
+            self.sgl = SGL.Views(
+                train_csr, lambda csr: propagator(
+                    csr, n_layers, sparse, block_size, block_rows, dev),
+                ssl_reg, ssl_ratio, ssl_temp)
+            self.redraw_views()
 
     def steps(self, n: int) -> torch.Tensor:
         """Run ``n`` BPR steps; returns their [n] losses on the device."""
@@ -406,9 +439,12 @@ class BPRPretrainer:
                     batch = batch.pin_memory().to(self.device,
                                                   non_blocking=True)
             with span("gdmcf.bpr.step"):
+                # no views: bpr_step's seven arguments alone, as code that
+                # wraps the BPR step calls it
+                views = () if self.sgl is None else (self.sgl,)
                 self.opt_state, loss = bpr_step(
                     self.e0, self.opt_state, self.prop, batch, self.n_user,
-                    self.lr, self.decay)
+                    self.lr, self.decay, *views)
             losses.append(loss)
             self._batches.append(host)
             self.n_steps += 1
@@ -430,16 +466,36 @@ class BPRPretrainer:
         return np.stack(kept) if kept else np.zeros(
             (0, 3, self.batch_size), np.int64)
 
+    def redraw_views(self) -> None:
+        """Draw both SGL views anew from the host generator and build their
+        operands on the device."""
+        if self.sgl is None:
+            raise ValueError("no SGL views to redraw: ssl_reg is 0")
+        self.sgl.draw(self.rng)
+
+    def views(self) -> Optional[Tuple[np.ndarray, ...]]:
+        """Each SGL view's sorted int64 indices of the stored interactions
+        it keeps; None without views."""
+        return None if self.sgl is None else self.sgl.kept
+
     def state(self) -> PretrainerState:
         opt = self.opt_state
         return PretrainerState(
             _host_copy(self.e0), _host_copy(opt.mu["e0"]),
             _host_copy(opt.nu["e0"]), _host_copy(opt.count),
-            copy.deepcopy(self.rng.bit_generator.state), self.n_steps)
+            copy.deepcopy(self.rng.bit_generator.state), self.n_steps,
+            self.views())
 
     def restore(self, start: PretrainerState) -> None:
-        """Put the table, the moments, K1's count and the generator back
-        to ``start``, in place; the kept triples are dropped."""
+        """Put the table, the moments, K1's count, the generator and the
+        views back to ``start``, in place (the views' operands are rebuilt
+        only when their kept edges differ from the current ones); the kept
+        triples are dropped."""
+        if (start.views is None) != (self.sgl is None):
+            raise ValueError("the saved start and this pretrainer differ in "
+                             "having SGL views")
+        if start.views is not None:
+            self.sgl.put(start.views)
         opt = self.opt_state
         with torch.no_grad():
             self.e0.copy_(torch.from_numpy(start.e0))
@@ -471,7 +527,9 @@ def pretrain(train_csr: sp.spmatrix, test_csr: sp.spmatrix,
              sparse: "bool | str | None" = None, block_size: int = 128,
              block_rows: Optional[int] = None, evaluate: bool = True,
              steps_per_epoch: Optional[int] = None, device=None,
-             init_table: Optional[np.ndarray] = None) -> LightGCNResult:
+             init_table: Optional[np.ndarray] = None, ssl_reg: float = 0.0,
+             ssl_ratio: float = 0.1, ssl_temp: float = 0.2
+             ) -> LightGCNResult:
     """The reference pretrainer's loop: Adam and BPR, then per epoch the
     Recall/Precision/NDCG/MAP@k evaluation; returns the four tables of
     the epoch with the best NDCG (the reference saves them as .pt files).
@@ -489,6 +547,10 @@ def pretrain(train_csr: sp.spmatrix, test_csr: sp.spmatrix,
     [n_user + n_item, latent_dim] table to start from (numpy, copied); by
     default ``initial_table(..., seed)``. Dense products and the scores
     run in float32 with TF32 off.
+
+    ``ssl_reg > 0`` trains SGL-ED (``BPRPretrainer``'s ``ssl_*``): the
+    views drawn at construction serve epoch 0, and each later epoch starts
+    by drawing two new ones.
     """
     from gdmcf_torch.train.trainer import matmul_precision
 
@@ -504,7 +566,8 @@ def pretrain(train_csr: sp.spmatrix, test_csr: sp.spmatrix,
         evaluate = False
     pt = BPRPretrainer(train_csr, n_layers, latent_dim, batch_size, lr,
                        decay, seed, sparse, block_size, block_rows, dev,
-                       init_table, keep_batches=0)
+                       init_table, keep_batches=0, ssl_reg=ssl_reg,
+                       ssl_ratio=ssl_ratio, ssl_temp=ssl_temp)
     if steps_per_epoch is None:
         steps_per_epoch = max(int(train_csr.nnz) // batch_size, 1)
     if evaluate:
@@ -516,6 +579,8 @@ def pretrain(train_csr: sp.spmatrix, test_csr: sp.spmatrix,
     best_ndcg, best = -1.0, None
     with matmul_precision(tf32=False):
         for epoch in range(epochs):
+            if epoch and ssl_reg > 0:
+                pt.redraw_views()
             # the losses stay on the device: one fetch per epoch
             total = pt.loss_total(pt.steps(steps_per_epoch))
             if not evaluate:

@@ -79,7 +79,8 @@ SLAB_L2_SHARE = 2 / 3
 
 # launches of the kernel per direction since the last reset_launch_counts();
 # the wrapper adds one exactly where it launches the kernel, and one to
-# SLABBED where that launch ran a slabbed schedule
+# SLABBED where that launch ran a slabbed schedule (each operand also
+# counts its own, ``RowOperand.launches`` / ``.slabbed``)
 LAUNCHES = {"spmm_rows_fwd": 0, "spmm_rows_t": 0}
 SLABBED = {"spmm_rows_fwd": 0, "spmm_rows_t": 0}
 
@@ -122,6 +123,9 @@ class RowOperand:
     seg_len: int = ROW_SEGMENT  # nonzeros a segment holds at most
     slab_rows: int = 0          # x rows a slab holds; 0: the CSR's order
     n_slab: int = 1             # slabs the x rows span
+    # LAUNCHES and SLABBED of this operand alone (a caller may zero them)
+    launches: int = field(default=0, compare=False)
+    slabbed: int = field(default=0, compare=False)
 
     _TENSORS = ("row_ptr", "cols", "vals", "seg_ptr", "seg_row", "seg_part",
                 "row_part_ptr")
@@ -578,6 +582,8 @@ def _launch(op: RowOperand, x: torch.Tensor) -> torch.Tensor:
         _check(lib, code, name)
         LAUNCHES[name] += 1
         SLABBED[name] += op.n_slab > 1
+        op.launches += 1
+        op.slabbed += op.n_slab > 1
     return y
 
 

@@ -5,6 +5,11 @@ script as an entry point on the port.
         --epochs 30 --latent_dim 64 --n_layers 3 --out_dir ./embeddings
     python -m gdmcf_torch.pretrain_cli --device cpu --data_path DIR ...
 
+``--ssl_reg`` above 0 trains SGL-ED instead (two edge-dropped views
+redrawn each epoch, each dropping ``--ssl_ratio`` of the interactions,
+and a whole-table InfoNCE at temperature ``--ssl_temp`` weighted by
+``--ssl_reg``; ``models.sgl``), writing the same tables.
+
 Runs on ``cuda`` unless ``--device cpu``. Writes
 ``<out_dir>/lightgcn_embeddings.npz`` with the four tables the reference
 saves as .pt files (final/initial x user/item). When the data directory
@@ -28,6 +33,13 @@ def main(argv=None) -> None:
     ap.add_argument("--decay", type=float, default=1e-4)
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ssl_reg", type=float, default=0.0,
+                    help="SGL-ED's InfoNCE weight; 0 (the default) trains "
+                    "LightGCN alone")
+    ap.add_argument("--ssl_ratio", type=float, default=0.1,
+                    help="the share of interactions a view drops")
+    ap.add_argument("--ssl_temp", type=float, default=0.2,
+                    help="the InfoNCE's temperature")
     ap.add_argument("--out_dir", type=str, default="./embeddings")
     ap.add_argument("--device", type=str, default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
@@ -46,13 +58,17 @@ def main(argv=None) -> None:
         train_path,
         os.path.join(args.data_path, "valid_list.npy"),
         os.path.join(args.data_path, "test_list.npy"))
-    print(f"pretraining LightGCN on {n_user} users x {n_item} items "
+    what = "LightGCN" if args.ssl_reg <= 0 else (
+        f"SGL-ED (ssl_reg {args.ssl_reg}, ssl_ratio {args.ssl_ratio}, "
+        f"ssl_temp {args.ssl_temp})")
+    print(f"pretraining {what} on {n_user} users x {n_item} items "
           f"on {device}")
     result = pretrain(train, test, n_layers=args.n_layers,
                       latent_dim=args.latent_dim, epochs=args.epochs,
                       batch_size=args.batch_size, lr=args.lr,
                       decay=args.decay, k=args.k, seed=args.seed,
-                      device=device)
+                      device=device, ssl_reg=args.ssl_reg,
+                      ssl_ratio=args.ssl_ratio, ssl_temp=args.ssl_temp)
     save_embeddings(result, args.out_dir)
     print(f"saved embeddings to {args.out_dir}/lightgcn_embeddings.npz")
 
